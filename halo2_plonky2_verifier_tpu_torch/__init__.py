@@ -1,0 +1,32 @@
+"""Batched plonky2/starky STARK proof verification in PyTorch, with CUDA
+kernels written for NVIDIA Hopper (sm_90a).
+
+The port of `halo2_plonky2_verifier_tpu` (JAX/Pallas), which stays beside it
+as the reference.  This package imports torch and numpy and never jax: a
+Goldilocks element is one int64 lane holding the u64 bit pattern, and the
+three Pallas kernels of the verifier's path (Merkle paths, leaf sponge,
+transcript) are CUDA kernels in `ops/csrc/`, built with nvcc at first use.
+
+Public API:
+    build_verifier(stark, config, degree_bits) -> verify(batch) -> (B,) bool
+    witness.proof_shape / witness.load_batch_npz / witness.batch_from_numpy
+    StarkConfig.standard_fast_config()
+    models.fibonacci.FibonacciStark
+"""
+
+from .stark import build_verifier
+from .utils.config import FriConfig, FriParams, StarkConfig
+from .witness import (ProofBatch, ProofShape, batch_from_numpy, load_batch_npz,
+                      proof_shape)
+
+__all__ = [
+    "build_verifier",
+    "FriConfig",
+    "FriParams",
+    "StarkConfig",
+    "ProofBatch",
+    "ProofShape",
+    "batch_from_numpy",
+    "load_batch_npz",
+    "proof_shape",
+]

@@ -1,0 +1,255 @@
+"""FRI verification over all query rounds of all proofs at once.
+
+Counterpart of `halo2_plonky2_verifier_tpu/fri.py` for the Poseidon-
+Goldilocks hasher.  The 84 query rounds are a tensor axis Q beside the proof
+axis B; every Merkle path check of the verification (each oracle's initial
+proof and each reduction step's proof) is stacked on one lane axis and runs
+through kernel K1 (`ops/merkle_kernels.py`), with the step leaves sponged by
+kernel K3; `assert_equal` becomes boolean lanes AND-reduced into a per-proof
+verdict.
+
+Index conventions follow the reference chip: x_index = the low lde_bits of
+the query challenge (LSB-first bits drive left/right selection), cap index =
+its top cap_height bits, subgroup point = 7 * phi^bitrev(x_index).
+"""
+
+import torch
+
+from .hashing import get_hash_ops
+from .ops import goldilocks as gl
+from .ops import goldilocks_ext as gle
+from .ops import merkle_kernels
+from .ops import poseidon
+
+
+def _pow_root_consts(n_log):
+    """Host table: phi^(2^k) for phi = primitive 2^n_log-th root."""
+    phi = gl.primitive_root_of_unity(n_log)
+    out = []
+    cur = phi
+    for _ in range(n_log):
+        out.append(cur)
+        cur = cur * cur % gl.P
+    return out
+
+
+def exp_from_bits_const_base(idx, base_pows, nbits):
+    """prod_i (bit_i(idx) ? base^(2^i) : 1) with base_pows[i] = base^(2^i)."""
+    acc = gl.full(idx.shape, 1, idx.device)
+    for i in range(nbits):
+        bit = ((idx >> i) & 1) == 1
+        acc = gl.select(bit, gl.mul(acc, gl.full((), base_pows[i], idx.device)),
+                        acc)
+    return acc
+
+
+def bit_reverse_u32(idx, nbits):
+    """Bit-reverse the low nbits of a non-negative int64 index tensor."""
+    out = torch.zeros_like(idx)
+    for i in range(nbits):
+        out = out | (((idx >> i) & 1) << (nbits - 1 - i))
+    return out
+
+
+def merkle_scan_planes(node, idx, sib, active):
+    """node (4, N), idx (N,), sib (d_max, 4, N), active (d_max, N) int32 ->
+    (4, N) roots, through kernel K1."""
+    if sib.shape[0] == 0:
+        return node
+    return merkle_kernels.verify_paths_planes(node, sib, idx, active)
+
+
+def _gl_merkle_planes_verdict(H, leaf_datas, idxs, sibs, depths, caps,
+                              cap_index, d_max):
+    """GL Merkle verification with lanes = flattened (slot, batch, query)."""
+    b, q = idxs[0].shape
+    m = b * q
+    s = len(depths)
+    dev = idxs[0].device
+    planes = [ld.reshape(m, ld.shape[-1]).T for ld in leaf_datas]   # (w, M)
+    # slots of one width share one leaf-sponge launch
+    nodes = [None] * s
+    for w in sorted({p.shape[0] for p in planes}):
+        ids = [i for i, p in enumerate(planes) if p.shape[0] == w]
+        h = poseidon.hash_or_noop_planes(
+            torch.cat([planes[i] for i in ids], dim=1).contiguous())
+        for j, i in enumerate(ids):
+            nodes[i] = h[:, j * m:(j + 1) * m]
+    node = torch.cat(nodes, dim=1).contiguous()                     # (4, S*M)
+    idx_flat = torch.cat([i.reshape(m) for i in idxs])              # (S*M,)
+    sib_parts = []
+    for sb, d in zip(sibs, depths):
+        sp = sb.permute(2, 3, 0, 1).reshape(d, 4, m)
+        if d < d_max:
+            sp = torch.cat([sp, sp.new_zeros((d_max - d, 4, m))])
+        sib_parts.append(sp)
+    sib = torch.cat(sib_parts, dim=2).contiguous()                  # (dmax,4,S*M)
+    level_active = torch.zeros((d_max, s), dtype=torch.int32)
+    for si, d in enumerate(depths):
+        level_active[:d, si] = 1
+    active = (level_active.to(dev)[:, :, None].expand(d_max, s, m)
+              .reshape(d_max, s * m).contiguous())
+
+    out = merkle_scan_planes(node, idx_flat, sib, active)           # (4, S*M)
+    got = out.reshape(4, s, b, q).permute(2, 3, 1, 0)               # (B,Q,S,4)
+    root = H.take_cap(H.stack(caps, 1), cap_index)                  # (B,Q,S,4)
+    return H.eq(root, got)                                          # (B,Q,S)
+
+
+def merged_merkle_checks(S, H, batch, x_index, cap_index):
+    """Every Merkle path check of one verification, stacked on one slot
+    axis.  Returns (B, Q, S) booleans."""
+    leaf_datas, idxs, sibs, depths, caps = [], [], [], [], []
+    for oi in range(len(S.oracle_widths)):
+        leaf_datas.append(batch.initial_evals[oi])               # (B,Q,w)
+        idxs.append(x_index)
+        sibs.append(batch.initial_siblings[oi])                  # (B,Q,D,4)
+        depths.append(S.initial_depth)
+    caps.extend(batch.oracle_caps())
+
+    cum = 0
+    for si, ab in enumerate(S.reduction_arity_bits):
+        cum += ab
+        ev = batch.step_evals[si]                                # (B,Q,arity,2)
+        leaf_datas.append(ev.reshape(ev.shape[:2] + (-1,)))      # (B,Q,2*arity)
+        idxs.append(x_index >> cum)
+        sibs.append(batch.step_siblings[si])
+        depths.append(S.step_depths[si])
+        caps.append(batch.commit_caps[si])
+
+    return _gl_merkle_planes_verdict(H, leaf_datas, idxs, sibs, tuple(depths),
+                                     caps, cap_index, max(depths))
+
+
+def _bcast_ext(e, shape):
+    """Broadcast an ext value of batch shape (B,) to (B, Q)."""
+    return (e[0][:, None].expand(shape), e[1][:, None].expand(shape))
+
+
+def verify_fri(shape, batch, challenges, verdict):
+    """FRI verification; returns the updated (B,) verdict.
+
+    challenges: fri_alpha (ext (B,)), fri_betas (list of ext),
+    fri_pow_response ((B,)), query_lo ((B, Q) low words of the query
+    challenges), instance_batches (list of (point ext, [(oracle, poly)])),
+    openings_batches (list of lists of ext (B,) values).
+    """
+    S = shape
+    H = get_hash_ops(shape.hasher)
+    b = batch.batch_size
+    dev = batch.device
+    q = challenges["query_lo"].shape[-1]
+    n_log = S.lde_bits
+    assert n_log < 32
+    bq = (b, q)
+
+    # proof of work
+    verdict = verdict & gl.lt_pow2(challenges["fri_pow_response"],
+                                   64 - S.proof_of_work_bits)
+
+    # query indices
+    x_index = challenges["query_lo"] & ((1 << n_log) - 1)           # (B, Q)
+    cap_index = x_index >> S.initial_depth                          # top bits
+
+    # subgroup_x = 7 * phi^bitrev(x_index)
+    rev = bit_reverse_u32(x_index, n_log)
+    phi_pow = exp_from_bits_const_base(rev, _pow_root_consts(n_log), n_log)
+    subgroup_x = gl.mul(gl.full(bq, gl.GENERATOR, dev), phi_pow)
+
+    # reduced openings
+    alpha = challenges["fri_alpha"]
+    reduced_openings = [gle.reduce_with_powers(vals, alpha)
+                        for vals in challenges["openings_batches"]]
+
+    # combine_initial
+    alpha_bq = _bcast_ext(alpha, bq)
+    sx_ext = gle.from_base(subgroup_x)
+    denoms = [gle.sub(sx_ext, _bcast_ext(point, bq))
+              for (point, _) in challenges["instance_batches"]]
+    if len(denoms) == 2:
+        denom_invs = list(gle.inv_pair(denoms[0], denoms[1]))
+    else:
+        denom_invs = [gle.inv(d) for d in denoms]
+    total = gle.zeros_like(sx_ext)
+    for (point, polys), red_open, denom_inv in zip(
+            challenges["instance_batches"], reduced_openings, denom_invs):
+        evals = [gle.from_base(batch.initial_evals[oi][..., pi])
+                 for (oi, pi) in polys]
+        reduced_evals = gle.reduce_with_powers(evals, alpha_bq)
+        numerator = gle.sub(reduced_evals, _bcast_ext(red_open, bq))
+        alpha_shift = gle.exp_const(alpha_bq, len(evals))
+        total = gle.mul(alpha_shift, total)
+        total = gle.add(gle.mul(numerator, denom_inv), total)
+    old_eval = total
+
+    # merged Merkle checks
+    mk_ok = merged_merkle_checks(S, H, batch, x_index, cap_index)
+    verdict = verdict & mk_ok.all(dim=2).all(dim=1)
+
+    # reduction steps
+    idx_cur = x_index
+    for si, ab in enumerate(S.reduction_arity_bits):
+        arity = 1 << ab
+        within = idx_cur & (arity - 1)                              # (B, Q)
+        ev = batch.step_evals[si]                                   # (B,Q,arity,2)
+        picked = ev.gather(2, within[:, :, None, None].expand(b, q, 1, 2))
+        new_eval = (picked[:, :, 0, 0], picked[:, :, 0, 1])
+        verdict = verdict & gle.eq(new_eval, old_eval).all(dim=1)
+        old_eval = _compute_evaluation(subgroup_x, within, ab, ev,
+                                       challenges["fri_betas"][si], bq)
+        subgroup_x = gl.exp_power_of_2(subgroup_x, ab)
+        idx_cur = idx_cur >> ab
+
+    # final polynomial: Horner over the coefficients, highest first
+    fp = batch.final_poly                                           # (B, L, 2)
+    sx_ext = gle.from_base(subgroup_x)
+    acc = gle.zeros_like(sx_ext)
+    for i in reversed(range(fp.shape[1])):
+        c = (fp[:, i, 0][:, None], fp[:, i, 1][:, None])            # over Q
+        acc = gle.add(gle.mul(acc, sx_ext), c)
+    return verdict & gle.eq(acc, old_eval).all(dim=1)
+
+
+def _compute_evaluation(x, within, arity_bits, evals, beta, bq):
+    """Barycentric fold: the value at beta of the polynomial interpolating
+    the coset's evals (fri/mod.rs:286-322, interpolate_coset 223-283)."""
+    dev = x.device
+    arity = 1 << arity_bits
+    g = gl.primitive_root_of_unity(arity_bits)
+    g_inv = pow(g, arity - 1, gl.P)
+    ginv_pows = []
+    cur = g_inv
+    for _ in range(arity_bits):
+        ginv_pows.append(cur)
+        cur = cur * cur % gl.P
+    rev_within = bit_reverse_u32(within, arity_bits)
+    start = exp_from_bits_const_base(rev_within, ginv_pows, arity_bits)
+    coset_start = gl.mul(start, x)
+
+    # interpolate over two_adic_subgroup(arity_bits); values bit-reversed
+    brv = gl.reverse_index_bits(list(range(arity)))
+    domain = gl.two_adic_subgroup(arity_bits)
+    weights = _barycentric_weights_host(domain)
+    shifted = gle.scalar_mul(_bcast_ext(beta, bq), gl.inv(coset_start))
+
+    ev_acc = gle.zeros_like(shifted)
+    partial = (gl.full(bq, 1, dev), gl.zeros(bq, dev))
+    for i in range(arity):
+        e_i = (evals[:, :, brv[i], 0], evals[:, :, brv[i], 1])
+        val = gle.scalar_mul(e_i, gl.full(bq, weights[i], dev))
+        term = gle.sub(shifted, gle.from_base(gl.full(bq, domain[i], dev)))
+        ev_acc = gle.add(gle.mul(ev_acc, term), gle.mul(val, partial))
+        partial = gle.mul(partial, term)
+    return ev_acc
+
+
+def _barycentric_weights_host(domain):
+    """w_i = 1 / prod_{j != i} (x_i - x_j) over host ints."""
+    prods = []
+    for i, xi in enumerate(domain):
+        acc = 1
+        for j, xj in enumerate(domain):
+            if j != i:
+                acc = acc * ((xi - xj) % gl.P) % gl.P
+        prods.append(acc)
+    return gl.batch_inv_host(prods)

@@ -1,0 +1,253 @@
+"""Proof batches: static proof geometry and batched int64 tensors.
+
+`ProofShape` and `proof_shape` are copies of
+`halo2_plonky2_verifier_tpu/witness.py:23-82`.  `ProofBatch` has the JAX
+package's fields and shapes, with one int64 tensor per field where JAX holds
+a (hi, lo) uint32 pair.
+
+The port's state carried across from the JAX package is a proof batch:
+`batch_from_numpy` takes the leaves of a JAX `ProofBatch` (numpy (hi, lo)
+uint32 arrays in pytree order) and `load_batch_npz` reads the columnar
+fixtures that `witness.save_batch_npz` wrote, with numpy alone.
+"""
+
+from dataclasses import dataclass, fields
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .ops import goldilocks as gl
+
+
+@dataclass(frozen=True)
+class ProofShape:
+    """Static proof geometry (derived from config + stark + degree_bits)."""
+    num_columns: int
+    num_public_inputs: int
+    num_zs: int                 # permutation Z polys (0 if unused)
+    num_quotient: int
+    cap_size: int
+    lde_bits: int
+    initial_depth: int          # lde_bits - cap_height
+    reduction_arity_bits: tuple
+    final_poly_len: int
+    num_queries: int
+    num_challenges: int
+    num_challenge_sets: int     # permutation challenge sets drawn (batch size)
+    proof_of_work_bits: int
+    degree_bits: int
+    hasher: str = "poseidon_goldilocks"
+
+    @property
+    def uses_permutation(self):
+        return self.num_zs > 0
+
+    @property
+    def step_depths(self):
+        depths = []
+        bits = self.initial_depth
+        for ab in self.reduction_arity_bits:
+            bits -= ab
+            depths.append(bits)
+        return tuple(depths)
+
+    @property
+    def oracle_widths(self):
+        w = [self.num_columns]
+        if self.uses_permutation:
+            w.append(self.num_zs)
+        w.append(self.num_quotient)
+        return tuple(w)
+
+
+def proof_shape(stark, config, degree_bits,
+                hasher="poseidon_goldilocks") -> ProofShape:
+    fri_params = config.fri_params(degree_bits)
+    uses_perm = stark.uses_permutation_args()
+    return ProofShape(
+        num_columns=stark.COLUMNS,
+        num_public_inputs=stark.PUBLIC_INPUTS,
+        num_zs=stark.num_permutation_batches(config) if uses_perm else 0,
+        num_quotient=stark.quotient_degree_factor() * config.num_challenges,
+        cap_size=1 << config.fri_config.cap_height,
+        lde_bits=fri_params.lde_bits,
+        initial_depth=fri_params.lde_bits - config.fri_config.cap_height,
+        reduction_arity_bits=tuple(fri_params.reduction_arity_bits),
+        final_poly_len=fri_params.final_poly_len,
+        num_queries=config.fri_config.num_query_rounds,
+        num_challenges=config.num_challenges,
+        num_challenge_sets=stark.permutation_batch_size() if uses_perm else 0,
+        proof_of_work_bits=config.fri_config.proof_of_work_bits,
+        degree_bits=degree_bits,
+        hasher=hasher,
+    )
+
+
+@dataclass
+class ProofBatch:
+    """Batched proof data, one int64 tensor per field (B = batch):
+
+      trace_cap / zs_cap / quotient_cap: (B, cap, 4)
+      local_values, next_values: (B, C, 2); permutation_zs(_next): (B, Z, 2)
+      quotient_polys: (B, num_quotient, 2)
+      commit_caps[i]: (B, cap, 4); final_poly: (B, L, 2); pow_witness: (B,)
+      initial_evals[o]: (B, Q, w_o); initial_siblings[o]: (B, Q, depth, 4)
+      step_evals[i]: (B, Q, arity, 2); step_siblings[i]: (B, Q, depth_i, 4)
+      public_inputs: (B, n_pi)
+    """
+    shape: ProofShape
+    trace_cap: torch.Tensor
+    zs_cap: Optional[torch.Tensor]
+    quotient_cap: torch.Tensor
+    local_values: torch.Tensor
+    next_values: torch.Tensor
+    permutation_zs: Optional[torch.Tensor]
+    permutation_zs_next: Optional[torch.Tensor]
+    quotient_polys: torch.Tensor
+    commit_caps: list
+    final_poly: torch.Tensor
+    pow_witness: torch.Tensor
+    initial_evals: list
+    initial_siblings: list
+    step_evals: list
+    step_siblings: list
+    public_inputs: torch.Tensor
+
+    @property
+    def batch_size(self):
+        return self.pow_witness.shape[0]
+
+    @property
+    def device(self):
+        return self.pow_witness.device
+
+    def oracle_caps(self):
+        """Per-oracle expected caps, in oracle-index order."""
+        caps = [self.trace_cap]
+        if self.shape.uses_permutation:
+            caps.append(self.zs_cap)
+        caps.append(self.quotient_cap)
+        return caps
+
+
+# field order of the JAX ProofBatch pytree (halo2_plonky2_verifier_tpu/
+# witness.py:304-307); the list-valued fields hold one entry per oracle or
+# per FRI reduction step
+_FIELDS = ("trace_cap", "zs_cap", "quotient_cap", "local_values", "next_values",
+           "permutation_zs", "permutation_zs_next", "quotient_polys",
+           "commit_caps", "final_poly", "pow_witness", "initial_evals",
+           "initial_siblings", "step_evals", "step_siblings", "public_inputs")
+_OPTIONAL = ("zs_cap", "permutation_zs", "permutation_zs_next")
+assert set(_FIELDS) == {f.name for f in fields(ProofBatch)} - {"shape"}
+
+
+def _leaf_counts(shape):
+    """field -> number of arrays it holds (None: an absent optional field)."""
+    n_steps = len(shape.reduction_arity_bits)
+    n_oracles = len(shape.oracle_widths)
+    lists = {"commit_caps": n_steps, "initial_evals": n_oracles,
+             "initial_siblings": n_oracles, "step_evals": n_steps,
+             "step_siblings": n_steps}
+    out = {}
+    for f in _FIELDS:
+        if f in lists:
+            out[f] = lists[f]
+        elif f in _OPTIONAL and not shape.uses_permutation:
+            out[f] = None
+        else:
+            out[f] = 1
+    return out
+
+
+def u64_fields(leaves, shape):
+    """JAX ProofBatch leaves (numpy (hi, lo) uint32 arrays in pytree order)
+    -> {field: uint64 array, list of arrays, or None}.  The pytree drops a
+    None field and flattens a list field entry by entry; each pair gives hi,
+    then lo."""
+    leaves = list(leaves)
+    pos = 0
+
+    def take():
+        nonlocal pos
+        if pos + 2 > len(leaves):
+            raise ValueError("too few leaves for this proof shape")
+        hi, lo = (np.asarray(x) for x in leaves[pos:pos + 2])
+        pos += 2
+        if hi.shape != lo.shape:
+            raise ValueError(f"hi/lo shape mismatch {hi.shape} {lo.shape}")
+        return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+
+    out = {}
+    for f, count in _leaf_counts(shape).items():
+        if count is None:
+            out[f] = None
+        elif f in ("commit_caps", "initial_evals", "initial_siblings",
+                   "step_evals", "step_siblings"):
+            out[f] = [take() for _ in range(count)]
+        else:
+            out[f] = take()
+    if pos != len(leaves):
+        raise ValueError(f"{len(leaves) - pos} leaves left over for this "
+                         "proof shape")
+    return out
+
+
+def batch_from_u64(fields_u64, shape, device):
+    """{field: uint64 arrays} (as from `u64_fields`) -> ProofBatch."""
+    def conv(v):
+        if v is None:
+            return None
+        if isinstance(v, list):
+            return [gl.from_u64(x, device) for x in v]
+        return gl.from_u64(v, device)
+
+    batch = ProofBatch(shape=shape, **{f: conv(fields_u64[f]) for f in _FIELDS})
+    b = batch.batch_size
+    for t in _tensors(batch):
+        if t.shape[0] != b:
+            raise ValueError(f"inconsistent batch sizes {t.shape[0]} vs {b}")
+    return batch
+
+
+def batch_from_numpy(leaves, shape, device):
+    """JAX ProofBatch leaves (numpy (hi, lo) uint32 pairs) -> ProofBatch,
+    each pair packed as (hi << 32) | lo into int64."""
+    return batch_from_u64(u64_fields(leaves, shape), shape, device)
+
+
+def npz_leaves(path):
+    """The leaves a0, a1, ... of a columnar npz fixture, in order."""
+    with np.load(path) as data:
+        n = len(data.files)
+        names = [f"a{i}" for i in range(n)]
+        if sorted(names) != sorted(data.files):
+            raise ValueError(f"{path}: unexpected array names")
+        return [data[k] for k in names]
+
+
+def load_batch_npz(path, shape, device):
+    """Read a columnar fixture (`fib_stark_n*_x*.npz`) with numpy alone."""
+    return batch_from_numpy(npz_leaves(path), shape, device)
+
+
+def _tensors(batch):
+    for f in _FIELDS:
+        v = getattr(batch, f)
+        if v is None:
+            continue
+        if isinstance(v, list):
+            yield from v
+        else:
+            yield v
+
+
+def canonicality_verdict(batch: ProofBatch):
+    """AND over all loaded values being canonical (< p), reduced to (B,)
+    bool: the executor form of the witness range checks.  Every field of a
+    Goldilocks batch, hashes included, holds field elements."""
+    b = batch.batch_size
+    verdict = torch.ones((b,), dtype=torch.bool, device=batch.device)
+    for t in _tensors(batch):
+        verdict = verdict & gl.is_canonical(t).reshape(b, -1).all(dim=-1)
+    return verdict
