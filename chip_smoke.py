@@ -4,19 +4,26 @@
 Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
 
   1. device: the card's name and power limit;
-  2. build: nvcc for every kernel of the verifier's path, all at once;
-  3. kernels: K1 (Merkle paths), K2 (transcript) and K3 (leaf sponge), each
-     against its plain PyTorch version on the same seeded inputs at the
-     shapes of the main path; the results must be equal (tolerance 0: these
-     are integers), and both are timed on the card;
-  4. the fold shape: FibonacciStark n=2^11, B=1024 (the columnar fixture
-     tiled), through `build_verifier`; every verdict must be True, every
-     kernel of the path must have launched, a tampered batch must give the
-     expected verdicts, and its first 32 lanes must match the plain path run
-     on the CPU;
-  5. the flagship shape n=2^5, B=4096, with the same checks (no leaf sponge
-     on this shape);
-  6. one JSON line listing the kernels; the last line is
+  2. build: nvcc for every kernel of the verifier's paths, all at once;
+  3. kernels: K1 (Merkle paths), K2 (transcript), K3 (leaf sponge), K4
+     (BN254 Merkle paths), K5 (BN254 leaf hash, w = 4, 2, 32) and K6 (the
+     BN254 permutation), each against its plain PyTorch version on the same
+     seeded inputs at the shapes of the main paths; the results must be
+     equal (tolerance 0: these are integers).  Both are timed on the card
+     with CUDA events.  The BN254 plain versions are compared on a sample of
+     lanes that covers every Merkle slot (so every depth and width); the
+     kernel is timed at the full shape;
+  4. the drives, each through `build_verifier` on a tiled fixture: every
+     verdict must be True, every kernel of the path must have launched, a
+     tampered batch must give the expected verdicts, and its first lanes
+     must match the plain path run on the CPU (32 lanes Goldilocks, 8 BN254):
+       GL fold shape      n=2^11 B=1024, Goldilocks caps and transcript
+       GL flagship        n=2^5  B=4096
+       BN254 fold shape   n=2^11 B=1024, BN254 caps, Goldilocks transcript
+       BN254 flagship     n=2^5  B=4096, the same configuration
+       all-BN254          n=2^5  B=4096, BN254 caps and BN254 transcript;
+  5. one JSON line listing the kernels (launches per drive, times, the
+     least time the card could take for the same work), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -25,6 +32,7 @@ Usage: python3 chip_smoke.py        (needs one CUDA card and nvcc)
 """
 
 import json
+import math
 import os
 import subprocess
 import time
@@ -37,6 +45,8 @@ from halo2_plonky2_verifier_tpu_torch import (StarkConfig, build_verifier,
                                               witness)
 from halo2_plonky2_verifier_tpu_torch.models.fibonacci import FibonacciStark
 from halo2_plonky2_verifier_tpu_torch.ops import _build
+from halo2_plonky2_verifier_tpu_torch.ops import bn254 as fr
+from halo2_plonky2_verifier_tpu_torch.ops import bn254_kernels as bk
 from halo2_plonky2_verifier_tpu_torch.ops import goldilocks as gl
 from halo2_plonky2_verifier_tpu_torch.ops import merkle_kernels as mk
 from halo2_plonky2_verifier_tpu_torch.ops import transcript_kernels as tk
@@ -45,6 +55,44 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
 SEED = 20261016
 DEVICE = "cuda"
+BN = "poseidon_bn254"
+GLH = "poseidon_goldilocks"
+
+WRAPPERS = {"K1": mk.verify_paths_planes, "K2": tk.run_steps_planes,
+            "K3": mk.hash_no_pad_planes, "K4": bk.verify_paths_mont_planes,
+            "K5": bk.hash_or_noop_mont_planes, "K6": bk.permute_planes}
+
+# The least time the card could take (bound_ms): the larger of the bytes a
+# kernel must move (inputs read once, outputs written once) over the H100
+# SXM's 3.35 TB/s, and its integer multiplies over the card's peak rate for
+# them: 132 SMs x 64 32-bit IMAD per clock (compute capability 9.0) x 1.98
+# GHz boost.  A multiply is one 32 x 32 -> 64-bit partial product of the
+# schoolbook method on 32-bit words (a square of n words takes n(n+1)/2),
+# and each permutation is counted in its cheapest known form, whatever form
+# the kernel computes:
+#   Goldilocks (2 words): product 4, square 3, an element times a small MDS
+#   constant 2; S-box x^7 = 2 squares + 2 products.  plonky2's schedule with
+#   the fast partial layer: 8 full rounds of 12 S-boxes and the circulant
+#   MDS (145 small products); the partial layer's initial 11 x 11 matrix
+#   once; 22 partial rounds of one S-box, 22 products (w_hat and v rows) and
+#   one small product (mds_partial_layer_fast).
+#   BN254 (8 words): product 64, square 36, Montgomery reduction (REDC)
+#   8 * (1 + 8) = 72; S-box x^5 = 2 squares + 1 product, each reduced.  The
+#   optimized schedule of refimpl/poseidon_bn254_opt.py: 8 full rounds of 4
+#   S-boxes and a dense mix (4 rows of 4 products and one REDC); 56 partial
+#   rounds of one S-box and a sparse mix (row 0: 4 products, one REDC;
+#   rows 1-3: one product and one REDC each).
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 132 * 64 * 1.98e9
+GL_MUL, GL_SQR, GL_SMALL = 4, 3, 2
+GL_SBOX = 2 * GL_SQR + 2 * GL_MUL
+GL_PERM_MULS = (8 * (12 * GL_SBOX + 145 * GL_SMALL) + 11 * 11 * GL_MUL
+                + 22 * (GL_SBOX + 22 * GL_MUL + GL_SMALL))          # 6,436
+BN_MUL, BN_SQR, BN_REDC = 64, 36, 72
+BN_MONT_MUL = BN_MUL + BN_REDC
+BN_SBOX = 2 * (BN_SQR + BN_REDC) + BN_MONT_MUL
+BN_PERM_MULS = (8 * (4 * BN_SBOX + 4 * (4 * BN_MUL + BN_REDC))
+                + 56 * (BN_SBOX + 7 * BN_MUL + 4 * BN_REDC))        # 82,688
 
 
 def log(msg):
@@ -66,12 +114,29 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes, muls):
+    """(bound_ms, bound_by) for a kernel moving `nbytes` and doing `muls`
+    integer multiplies."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, muls / IMAD_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def rand_gl(rng, shape):
     """Seeded field elements below p, with 0 and p - 1 among them."""
     x = rng.integers(0, gl.P, size=shape, dtype=np.uint64)
     flat = x.reshape(-1)
     flat[0] = 0
     flat[1] = gl.P - 1
+    return x
+
+
+def rand_fr(rng, shape):
+    """Seeded BN254 elements below p as (..., 4) uint64 words: the top word
+    stays below p's, so every value is canonical."""
+    x = rng.integers(0, np.iinfo(np.uint64).max, size=shape + (4,),
+                     dtype=np.uint64, endpoint=True)
+    x[..., 3] %= np.uint64(fr.P >> 192)
     return x
 
 
@@ -83,68 +148,149 @@ def max_abs_err(a, b):
     return float(np.where(x >= y, x - y, y - x).max()) if x.size else 0.0
 
 
-def check_kernels(rng):
-    """Phase 3: each kernel against its plain version at main-path shapes."""
-    dev = DEVICE
-    B, Q = 1024, 84
+def fibonacci_shape(num_rows, degree_bits, hasher=GLH):
+    """(stark, config, shape) of FibonacciStark under standard_fast_config."""
+    fib = FibonacciStark(num_rows)
+    config = StarkConfig.standard_fast_config()
+    return fib, config, proof_shape(fib, config, degree_bits, hasher)
+
+
+def path_inputs(rng, depths, m, node_words, sib_words):
+    """K1/K4 inputs with the slots of the verifier's merged Merkle check:
+    node (4, S*m), siblings (d_max, 4, S*m), idx, active.  node_words and
+    sib_words are the hashes as (S*m, 4) and (d_max, S*m, 4) uint64 words,
+    made by the caller."""
+    d_max, n = max(depths), len(depths) * m
+    node = gl.from_u64(node_words(n).T.copy(), DEVICE)
+    sib = gl.from_u64(sib_words(d_max, n).transpose(0, 2, 1).copy(), DEVICE)
+    idx = torch.from_numpy(rng.integers(0, 1 << d_max, size=n)).to(DEVICE)
+    level_active = np.zeros((d_max, len(depths)), dtype=np.int32)
+    for s_, d in enumerate(depths):
+        level_active[:d, s_] = 1
+    active = torch.from_numpy(np.repeat(level_active, m, axis=1)).to(DEVICE)
+    return node, sib, idx, active
+
+
+def sample_lanes(n, groups, per_group):
+    """`per_group` evenly spaced lanes of each of `groups` equal slots."""
+    m = n // groups
+    step = max(1, m // per_group)
+    return torch.cat([torch.arange(g * m, (g + 1) * m, step)[:per_group]
+                      for g in range(groups)]).to(DEVICE)
+
+
+def check_kernels(rng, B=1024, Q=84):
+    """Phase 3: each kernel against its plain version at main-path shapes
+    (B proofs of Q queries).  Returns {K: stats}."""
     m = B * Q
-    results = {}
+    cases = {}   # K -> list of (kernel fn, plain fn, pick, what, bytes, muls)
 
     # K1: the n=2^11 slots (3 oracles of depth 8, step trees of depth 4, 0)
     depths = (8, 8, 8, 4, 0)
-    d_max, n = max(depths), len(depths) * m
-    node = gl.from_u64(rand_gl(rng, (4, n)), dev)
-    sib = gl.from_u64(rand_gl(rng, (d_max, 4, n)), dev)
-    idx = torch.from_numpy(rng.integers(0, 1 << d_max, size=n)).to(dev)
-    level_active = np.zeros((d_max, len(depths)), dtype=np.int32)
-    for s, d in enumerate(depths):
-        level_active[:d, s] = 1
-    active = torch.from_numpy(np.repeat(level_active, m, axis=1)).to(dev)
+    node, sib, idx, active = path_inputs(
+        rng, depths, m, lambda n: rand_gl(rng, (n, 4)),
+        lambda d, n: rand_gl(rng, (d, n, 4)))
+    n, d_max = node.shape[1], sib.shape[0]
     args = (node, sib, idx, active)
-    results["K1"] = (lambda: mk.verify_paths_planes(*args),
-                     lambda: mk.verify_paths_planes_plain(*args),
-                     f"N={n} d_max={d_max}")
+    cases["K1"] = [(lambda: mk.verify_paths_planes(*args),
+                    lambda: mk.verify_paths_planes_plain(*args), None,
+                    f"N={n} d_max={d_max}",
+                    n * (32 + 8 + 32) + d_max * n * (32 + 4),
+                    int(active.sum()) * GL_PERM_MULS)]
 
     # K2: the transcript schedule of the n=2^11 proofs, B=1024
     shape = fibonacci_shape(2048, 11)[2]
     one = witness.load_batch_npz(
         os.path.join(FIXTURES, "fib_stark_n2048_x8.npz"), shape, "cpu")
     sched, _, _ = stark.challenge_stream(one)
-    _, mask = transcript.schedule_tables(sched, dev)
+    _, mask = transcript.schedule_tables(sched, DEVICE)
     n_steps = len(sched.steps)
-    chunks = gl.from_u64(rand_gl(rng, (n_steps, 8, B)), dev)
-    results["K2"] = (lambda: tk.run_steps_planes(chunks, mask),
-                     lambda: tk.run_steps_planes_plain(chunks, mask),
-                     f"n_steps={n_steps} B={B}")
+    chunks = gl.from_u64(rand_gl(rng, (n_steps, 8, B)), DEVICE)
+    cases["K2"] = [(lambda: tk.run_steps_planes(chunks, mask),
+                    lambda: tk.run_steps_planes_plain(chunks, mask), None,
+                    f"n_steps={n_steps} B={B}",
+                    2 * chunks.numel() * 8 + mask.numel() * 4,
+                    n_steps * B * GL_PERM_MULS)]
 
     # K3: the two step-leaf slots of the n=2^11 proofs, w=32
-    leaves = gl.from_u64(rand_gl(rng, (32, 2 * m)), dev)
-    results["K3"] = (lambda: mk.hash_no_pad_planes(leaves),
-                     lambda: mk.hash_no_pad_planes_plain(leaves),
-                     f"w=32 N={2 * m}")
+    leaves = gl.from_u64(rand_gl(rng, (32, 2 * m)), DEVICE)
+    cases["K3"] = [(lambda: mk.hash_no_pad_planes(leaves),
+                    lambda: mk.hash_no_pad_planes_plain(leaves), None,
+                    f"w=32 N={2 * m}", leaves.numel() * 8 + 2 * m * 32,
+                    4 * 2 * m * GL_PERM_MULS)]
+
+    # K4: the BN254 fold shape's slots, node in Montgomery form, some
+    # siblings >= p (as in a tampered proof); the plain version on 64 lanes
+    # of each slot
+    def bn_sibs(d, n):
+        s = rand_fr(rng, (d, n))
+        s[0, ::997, 3] = np.uint64(0xFFFFFFFFFFFFFFFF)
+        return s
+
+    bnode, bsib, bidx, bactive = path_inputs(
+        rng, depths, m, lambda n: rand_fr(rng, (n,)), bn_sibs)
+    bargs = (bnode, bsib, bidx, bactive)
+    pick = sample_lanes(bnode.shape[1], len(depths), 64)
+    sub = (bnode[:, pick].contiguous(), bsib[:, :, pick].contiguous(),
+           bidx[pick].contiguous(), bactive[:, pick].contiguous())
+    n_act = int(bactive.sum())
+    cases["K4"] = [(lambda: bk.verify_paths_mont_planes(*bargs),
+                    lambda: bk.verify_paths_mont_planes_plain(*sub), pick,
+                    f"N={bnode.shape[1]} d_max={d_max} (plain on "
+                    f"N={pick.numel()})",
+                    n * (32 + 8 + 32) + d_max * n * (32 + 4),
+                    n_act * (BN_PERM_MULS + BN_MONT_MUL) + n * BN_REDC)]
+
+    # K5: the BN254 fold shape's three leaf widths, one launch each
+    cases["K5"] = []
+    for w, lanes in ((4, m), (2, 2 * m), (32, 2 * m)):
+        x = gl.from_u64(rand_gl(rng, (w, lanes)), DEVICE)
+        pk = sample_lanes(lanes, lanes // m, 128)
+        xs = x[:, pk].contiguous()
+        perms = 0 if w <= 3 else math.ceil(w / 9)
+        conv = 1 if w <= 3 else math.ceil(w / 3)
+        cases["K5"].append((
+            (lambda x=x: bk.hash_or_noop_mont_planes(x)),
+            (lambda xs=xs: bk.hash_or_noop_mont_planes_plain(xs)), pk,
+            f"w={w} N={lanes} (plain on N={pk.numel()})",
+            x.numel() * 8 + lanes * 32,
+            lanes * (perms * BN_PERM_MULS + conv * BN_MONT_MUL)))
+
+    # K6: one BN254 transcript step of the all-BN254 drive, B=4096, whole
+    nb = 4 * B
+    st = gl.from_u64(rand_fr(rng, (nb, 4)).reshape(nb, 16).T.copy(), DEVICE)
+    cases["K6"] = [(lambda: bk.permute_planes(st),
+                    lambda: bk.permute_planes_plain(st), None,
+                    f"N={nb} (one transcript step)", 2 * st.numel() * 8,
+                    nb * BN_PERM_MULS)]
 
     out = {}
-    for name, (kernel, plain, what) in results.items():
-        got = kernel()
-        want = plain()
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        if err != 0.0 or not torch.equal(got, want):
-            raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"({what}): max_abs_err {err}")
-        ms = cuda_ms(kernel, 5)
-        plain_ms = cuda_ms(plain, 2)
-        log(f"kernel {name} ({what}): equal to plain; {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    for name, parts in cases.items():
+        stats = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                 "bound_ms": 0.0, "bound_by": "operations",
+                 "library_ms": None, "shapes": []}
+        for kernel, plain, pick, what, nbytes, muls in parts:
+            got = kernel()
+            want = plain()
+            torch.cuda.synchronize()
+            if pick is not None:
+                got = got[..., pick].contiguous()
+            err = max_abs_err(got, want)
+            if err != 0.0 or not torch.equal(got, want):
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version ({what}): max_abs_err {err}")
+            ms = cuda_ms(kernel, 3)
+            plain_ms = cuda_ms(plain, 1)
+            b_ms, b_by = bound(nbytes, muls)
+            log(f"kernel {name} ({what}): equal to plain; {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            stats["max_abs_err"] = max(stats["max_abs_err"], err)
+            stats["ms"] += ms
+            stats["plain_ms"] += plain_ms
+            stats["bound_ms"] += b_ms
+            stats["shapes"].append(what)
+        out[name] = stats
     return out
-
-
-def fibonacci_shape(num_rows, degree_bits):
-    """(stark, config, shape) of FibonacciStark under standard_fast_config."""
-    fib = FibonacciStark(num_rows)
-    config = StarkConfig.standard_fast_config()
-    return fib, config, proof_shape(fib, config, degree_bits)
 
 
 def tiled_fields(path, shape, size):
@@ -160,50 +306,78 @@ def tiled_fields(path, shape, size):
             for k, v in fields.items()}
 
 
+def _copy(fields):
+    return {k: (None if v is None else [x.copy() for x in v]
+                if isinstance(v, list) else v.copy())
+            for k, v in fields.items()}
+
+
+def _bump(arr, index):
+    arr[index] = np.uint64((int(arr[index]) + 1) % gl.P)
+
+
 def tamper(fields):
     """Corrupt one value in lanes 1..9 (lane 0 stays clean); returns the
     tampered fields and the lanes expected to fail."""
-    f = {k: (None if v is None else [x.copy() for x in v]
-             if isinstance(v, list) else v.copy())
-         for k, v in fields.items()}
-
-    def bump(arr, index):
-        arr[index] = np.uint64((int(arr[index]) + 1) % gl.P)
-
+    f = _copy(fields)
     f["pow_witness"][1] ^= np.uint64(1)
-    bump(f["trace_cap"], (2, 0, 0))
-    bump(f["local_values"], (3, 0, 0))
-    bump(f["public_inputs"], (4, 2))
-    bump(f["initial_evals"][0], (5, 10, 1))
+    _bump(f["trace_cap"], (2, 0, 0))
+    _bump(f["local_values"], (3, 0, 0))
+    _bump(f["public_inputs"], (4, 2))
+    _bump(f["initial_evals"][0], (5, 10, 1))
     bad = [1, 2, 3, 4, 5]
     if f["step_evals"]:
-        bump(f["step_evals"][0], (6, 5, 3, 0))
-        bump(f["commit_caps"][0], (7, 1, 0))
+        _bump(f["step_evals"][0], (6, 5, 3, 0))
+        _bump(f["commit_caps"][0], (7, 1, 0))
         bad += [6, 7]
-    bump(f["final_poly"], (8, 0, 0))
+    _bump(f["final_poly"], (8, 0, 0))
     f["next_values"][9, 0, 0] = np.uint64(gl.P)   # not canonical
     bad += [8, 9]
     return f, bad
 
 
-def drive(name, fib, config, shape, path, size, device_line):
-    """Verify a real batch through the port's entry point on the card;
-    returns the kernel launch counts of that run."""
-    wrappers = {"K1": mk.verify_paths_planes, "K2": tk.run_steps_planes,
-                "K3": mk.hash_no_pad_planes}
-    fields = tiled_fields(path, shape, size)
-    batch = witness.batch_from_u64(fields, shape, DEVICE)
-    verify = build_verifier(fib, config, shape.degree_bits)
+def tamper_bn254(fields):
+    """The BN254 variant, lanes 1..7 (inside the CPU comparison): a cap word
+    and a sibling word bumped, a cap element raised by p (>= p, the same
+    residue), plus the Goldilocks surfaces."""
+    f = _copy(fields)
+    f["pow_witness"][1] ^= np.uint64(1)
+    f["trace_cap"][2, 0, 0] += np.uint64(1)
+    f["initial_siblings"][0][3, 5, 0, 0] += np.uint64(1)
+    words = f["quotient_cap"][4, 1]
+    v = sum(int(w) << (64 * k) for k, w in enumerate(words)) + fr.P
+    f["quotient_cap"][4, 1] = [(v >> (64 * k)) & ((1 << 64) - 1)
+                               for k in range(4)]
+    _bump(f["initial_evals"][0], (5, 10, 1))
+    if f["step_evals"]:
+        _bump(f["step_evals"][0], (6, 5, 3, 0))
+        f["commit_caps"][0][7, 1, 0] += np.uint64(1)
+    else:
+        _bump(f["public_inputs"], (6, 2))
+        _bump(f["final_poly"], (7, 0, 0))
+    return f, [1, 2, 3, 4, 5, 6, 7]
 
-    for w in wrappers.values():
+
+def drive(name, num_rows, degree_bits, fixture, size, hasher, transcript_,
+          expected, tamper_fn, lanes, device_line):
+    """Verify a real batch through the port's entry point on the card,
+    then a copy tampered by `tamper_fn`, whose first `lanes` lanes are also
+    verified on the CPU; returns the kernel launch counts of the first run
+    and its best wall time."""
+    fib, config, shape = fibonacci_shape(num_rows, degree_bits, hasher)
+    fields = tiled_fields(os.path.join(FIXTURES, fixture), shape, size)
+    batch = witness.batch_from_u64(fields, shape, DEVICE)
+    verify = build_verifier(fib, config, degree_bits, hasher=hasher,
+                            transcript=transcript_)
+
+    for w in WRAPPERS.values():
         w.launches = 0
     verdict = verify(batch)
     torch.cuda.synchronize()
-    counts = {k: w.launches for k, w in wrappers.items()}
+    counts = {k: w.launches for k, w in WRAPPERS.items()}
     if verdict.shape != (size,) or not bool(verdict.all()):
         raise AssertionError(f"{name}: valid proofs rejected: "
                              f"{int((~verdict).sum())} of {size}")
-    expected = ["K1", "K2"] + (["K3"] if shape.reduction_arity_bits else [])
     for k in expected:
         if counts[k] < 1:
             raise AssertionError(f"{name}: kernel {k} never launched")
@@ -219,23 +393,40 @@ def drive(name, fib, config, shape, path, size, device_line):
     log(f"{name}: {size / best:.1f} proofs/s ({best * 1e3:.2f} ms per batch "
         f"of {size}, best of 3) on {device_line}")
 
-    bad_fields, bad = tamper(fields)
+    bad_fields, bad = tamper_fn(fields)
     got = verify(witness.batch_from_u64(bad_fields, shape, DEVICE)).cpu()
     want = torch.ones(size, dtype=torch.bool)
     want[bad] = False
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: tampered verdicts {got[:16].tolist()}, "
                              f"expected {want[:16].tolist()}")
-    cpu_fields = {k: (None if v is None else [x[:32] for x in v]
-                      if isinstance(v, list) else v[:32])
+    cpu_fields = {k: (None if v is None else [x[:lanes] for x in v]
+                      if isinstance(v, list) else v[:lanes])
                   for k, v in bad_fields.items()}
     cpu = verify(witness.batch_from_u64(cpu_fields, shape, "cpu"))
-    if not torch.equal(cpu, got[:32]):
+    if not torch.equal(cpu, got[:lanes]):
         raise AssertionError(f"{name}: card and CPU verdicts differ: "
-                             f"{got[:32].tolist()} vs {cpu.tolist()}")
+                             f"{got[:lanes].tolist()} vs {cpu.tolist()}")
     log(f"{name}: tampered lanes {bad} rejected, lane 0 and the rest "
-        "accepted; first 32 lanes equal the CPU plain path")
-    return counts
+        f"accepted; first {lanes} lanes equal the CPU plain path")
+    return counts, best
+
+
+DRIVES = (
+    # name, n, degree_bits, fixture, B, hasher, transcript, kernels launched,
+    # tamper, lanes checked on the CPU (the plain BN254 permutation is slow)
+    ("GL n=2^11 B=1024", 2048, 11, "fib_stark_n2048_x32.npz", 1024, GLH, GLH,
+     ("K1", "K2", "K3"), tamper, 32),
+    ("GL n=2^5 B=4096", 32, 5, "fib_stark_n32_x32.npz", 4096, GLH, GLH,
+     ("K1", "K2"), tamper, 32),
+    ("BN254 n=2^11 B=1024", 2048, 11, "fib_stark_n2048_poseidon_bn254_x8.npz",
+     1024, BN, GLH, ("K2", "K4", "K5"), tamper_bn254, 8),
+    ("BN254 n=2^5 B=4096", 32, 5, "fib_stark_n32_poseidon_bn254_x32.npz",
+     4096, BN, GLH, ("K2", "K4", "K5"), tamper_bn254, 8),
+    ("all-BN254 n=2^5 B=4096", 32, 5,
+     "fib_stark_n32_poseidon_bn254_bn254sponge_x8.npz", 4096, BN, BN,
+     ("K4", "K5", "K6"), tamper_bn254, 8),
+)
 
 
 def main():
@@ -266,35 +457,35 @@ def main():
     rng = np.random.default_rng(SEED)
     kstats = check_kernels(rng)
 
-    # 4. the fold shape, n=2^11, B=1024: the main path
-    fib, config, shape = fibonacci_shape(2048, 11)
-    counts = drive("n=2^11 B=1024", fib, config, shape,
-                   os.path.join(FIXTURES, "fib_stark_n2048_x32.npz"), 1024,
-                   device_line)
-    # 5. the flagship, n=2^5, B=4096
-    fib, config, shape = fibonacci_shape(32, 5)
-    counts_flagship = drive("n=2^5 B=4096", fib, config, shape,
-                            os.path.join(FIXTURES, "fib_stark_n32_x32.npz"),
-                            4096, device_line)
+    # 4. the drives
+    counts, walls = {}, {}
+    for name, *spec in DRIVES:
+        counts[name], walls[name] = drive(name, *spec, device_line)
 
-    # 6. the kernels line, then the contract's last line
+    # 5. the kernels line, then the contract's last line
     src = "halo2_plonky2_verifier_tpu_torch/ops/csrc/"
+    pallas = "halo2_plonky2_verifier_tpu/ops/"
     meta = {
-        "K1": ("merkle_path", src + "merkle_path.cu",
-               "halo2_plonky2_verifier_tpu/ops/merkle_pallas.py:39"),
-        "K2": ("transcript", src + "transcript.cu",
-               "halo2_plonky2_verifier_tpu/ops/transcript_pallas.py:37"),
-        "K3": ("leaf_sponge", src + "leaf_sponge.cu",
-               "halo2_plonky2_verifier_tpu/ops/merkle_pallas.py:159"),
+        "K1": ("merkle_path", "merkle_path.cu", "merkle_pallas.py:39"),
+        "K2": ("transcript", "transcript.cu", "transcript_pallas.py:37"),
+        "K3": ("leaf_sponge", "leaf_sponge.cu", "merkle_pallas.py:159"),
+        "K4": ("bn254_path", "bn254_path.cu", "poseidon_bn254_pallas.py:518"),
+        "K5": ("bn254_leaf", "bn254_leaf.cu", "poseidon_bn254_pallas.py:422"),
+        "K6": ("bn254_permute", "bn254_permute.cu",
+               "poseidon_bn254_pallas.py:412"),
     }
     kernels = []
     for k, (name, source, replaces) in meta.items():
+        by_drive = {d: counts[d][k] for d in counts}
         kernels.append({
-            "name": f"{k} {name}", "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[k],
-            "launches_flagship": counts_flagship[k], "matched": True,
-            **kstats[k]})
-    print(json.dumps({"kernels": kernels, "card": device_line}), flush=True)
+            "name": f"{k} {name}", "route": "cuda", "source": src + source,
+            "replaces": pallas + replaces,
+            "launches": sum(by_drive.values()), "launches_by_drive": by_drive,
+            "matched": True, **kstats[k]})
+    print(json.dumps({"kernels": kernels, "card": device_line,
+                      "wall_ms_best_of_3": {d: w * 1e3
+                                            for d, w in walls.items()}}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

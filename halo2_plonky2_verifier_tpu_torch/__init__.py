@@ -3,12 +3,16 @@ kernels written for NVIDIA Hopper (sm_90a).
 
 The port of `halo2_plonky2_verifier_tpu` (JAX/Pallas), which stays beside it
 as the reference.  This package imports torch and numpy and never jax: a
-Goldilocks element is one int64 lane holding the u64 bit pattern, and the
-three Pallas kernels of the verifier's path (Merkle paths, leaf sponge,
-transcript) are CUDA kernels in `ops/csrc/`, built with nvcc at first use.
+Goldilocks element is one int64 lane holding the u64 bit pattern, a BN254
+element four such words, and the six Pallas kernels of the verifier's paths
+(Goldilocks and BN254 Merkle paths and leaf hashes, the Goldilocks
+transcript, the BN254 permutation) are CUDA kernels in `ops/csrc/`, built
+with nvcc at first use.
 
 Public API:
-    build_verifier(stark, config, degree_bits) -> verify(batch) -> (B,) bool
+    build_verifier(stark, config, degree_bits, hasher=..., transcript=...)
+        -> verify(batch) -> (B,) bool; hasher and transcript are each
+        "poseidon_goldilocks" (default) or "poseidon_bn254"
     witness.proof_shape / witness.load_batch_npz / witness.batch_from_numpy
     StarkConfig.standard_fast_config()
     models.fibonacci.FibonacciStark

@@ -1,12 +1,14 @@
 """FRI verification over all query rounds of all proofs at once.
 
-Counterpart of `halo2_plonky2_verifier_tpu/fri.py` for the Poseidon-
-Goldilocks hasher.  The 84 query rounds are a tensor axis Q beside the proof
-axis B; every Merkle path check of the verification (each oracle's initial
-proof and each reduction step's proof) is stacked on one lane axis and runs
-through kernel K1 (`ops/merkle_kernels.py`), with the step leaves sponged by
-kernel K3; `assert_equal` becomes boolean lanes AND-reduced into a per-proof
-verdict.
+Counterpart of `halo2_plonky2_verifier_tpu/fri.py`.  The 84 query rounds
+are a tensor axis Q beside the proof axis B; every Merkle path check of the
+verification (each oracle's initial proof and each reduction step's proof)
+is stacked on one lane axis and runs through the hasher's two Merkle kernels
+(`hashing.py`): under Poseidon-Goldilocks the step leaves are sponged by
+kernel K3 and the paths run through kernel K1 (`ops/merkle_kernels.py`);
+under Poseidon-BN254 the leaves are hashed by kernel K5 and the paths run
+through kernel K4 (`ops/bn254_kernels.py`).  `assert_equal` becomes boolean
+lanes AND-reduced into a per-proof verdict.
 
 Index conventions follow the reference chip: x_index = the low lde_bits of
 the query challenge (LSB-first bits drive left/right selection), cap index =
@@ -18,8 +20,6 @@ import torch
 from .hashing import get_hash_ops
 from .ops import goldilocks as gl
 from .ops import goldilocks_ext as gle
-from .ops import merkle_kernels
-from .ops import poseidon
 
 
 def _pow_root_consts(n_log):
@@ -51,28 +51,20 @@ def bit_reverse_u32(idx, nbits):
     return out
 
 
-def merkle_scan_planes(node, idx, sib, active):
-    """node (4, N), idx (N,), sib (d_max, 4, N), active (d_max, N) int32 ->
-    (4, N) roots, through kernel K1."""
-    if sib.shape[0] == 0:
-        return node
-    return merkle_kernels.verify_paths_planes(node, sib, idx, active)
-
-
-def _gl_merkle_planes_verdict(H, leaf_datas, idxs, sibs, depths, caps,
-                              cap_index, d_max):
-    """GL Merkle verification with lanes = flattened (slot, batch, query)."""
+def _stack_paths(leaf_datas, idxs, sibs, depths, d_max, leaf_hash):
+    """Lanes = flattened (slot, batch, query).  Hashes each slot's leaves
+    (slots of one width share one `leaf_hash` launch) and stacks the
+    inputs of the path kernel: node (4, S*M), idx (S*M,), sib (d_max, 4,
+    S*M) zero-padded, active (d_max, S*M) int32."""
     b, q = idxs[0].shape
     m = b * q
     s = len(depths)
     dev = idxs[0].device
     planes = [ld.reshape(m, ld.shape[-1]).T for ld in leaf_datas]   # (w, M)
-    # slots of one width share one leaf-sponge launch
     nodes = [None] * s
     for w in sorted({p.shape[0] for p in planes}):
         ids = [i for i, p in enumerate(planes) if p.shape[0] == w]
-        h = poseidon.hash_or_noop_planes(
-            torch.cat([planes[i] for i in ids], dim=1).contiguous())
+        h = leaf_hash(torch.cat([planes[i] for i in ids], dim=1).contiguous())
         for j, i in enumerate(ids):
             nodes[i] = h[:, j * m:(j + 1) * m]
     node = torch.cat(nodes, dim=1).contiguous()                     # (4, S*M)
@@ -89,11 +81,22 @@ def _gl_merkle_planes_verdict(H, leaf_datas, idxs, sibs, depths, caps,
         level_active[:d, si] = 1
     active = (level_active.to(dev)[:, :, None].expand(d_max, s, m)
               .reshape(d_max, s * m).contiguous())
+    return node, idx_flat, sib, active
 
-    out = merkle_scan_planes(node, idx_flat, sib, active)           # (4, S*M)
-    got = out.reshape(4, s, b, q).permute(2, 3, 1, 0)               # (B,Q,S,4)
+
+def _merkle_planes_verdict(H, leaf_datas, idxs, sibs, depths, caps,
+                           cap_index):
+    """The leaves through the hasher's leaf kernel, the paths through its
+    path kernel, the roots compared with the cap entries -> (B, Q, S)
+    (counterpart of `_gl_merkle_planes_verdict` and
+    `_bn254_merkle_planes_verdict` in the JAX package's fri.py)."""
+    node, idx, sib, active = _stack_paths(leaf_datas, idxs, sibs, depths,
+                                          max(depths), H.leaf_hash)
+    out = H.verify_paths(node, sib, idx, active)                    # (4, S*M)
+    b, q = cap_index.shape
+    got = out.reshape(4, len(caps), b, q).permute(2, 3, 1, 0)       # (B,Q,S,4)
     root = H.take_cap(H.stack(caps, 1), cap_index)                  # (B,Q,S,4)
-    return H.eq(root, got)                                          # (B,Q,S)
+    return H.eq(root, got)
 
 
 def merged_merkle_checks(S, H, batch, x_index, cap_index):
@@ -117,8 +120,8 @@ def merged_merkle_checks(S, H, batch, x_index, cap_index):
         depths.append(S.step_depths[si])
         caps.append(batch.commit_caps[si])
 
-    return _gl_merkle_planes_verdict(H, leaf_datas, idxs, sibs, tuple(depths),
-                                     caps, cap_index, max(depths))
+    return _merkle_planes_verdict(H, leaf_datas, idxs, sibs, depths, caps,
+                                  cap_index)
 
 
 def _bcast_ext(e, shape):

@@ -3,10 +3,13 @@
 Each `csrc/*.cu` source is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface and loaded with `ctypes`.  The build runs at
 first use, never at import, from the sources in this checkout only, into
-`build/torch_kernels/` at the repository root.  The Poseidon constants header
-is generated there from the port's copy of the constants.  A library's file
-name carries a digest of everything it was built from, so a changed source
-is rebuilt and an unchanged one is loaded as it is.
+`build/torch_kernels/` at the repository root.  The two Poseidon constants
+headers (Goldilocks and BN254) are generated there from the port's copies of
+the constants.  A library's file name carries a digest of everything it was
+built from (its source, the text of every header in csrc/ and of both
+generated ones, and the flags), so a changed source, header or constant is
+rebuilt and an unchanged one is loaded as it is.  A header change rebuilds
+every library, which costs one parallel build.
 
 All sources are compiled at once, one `nvcc` process each.
 """
@@ -19,6 +22,7 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..constants import poseidon_bn254 as pbc
 from ..constants import poseidon_goldilocks as pc
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -35,14 +39,19 @@ KERNELS = {
                     (_P, _P, ctypes.c_int, ctypes.c_longlong, _P)),
     "transcript": ("transcript.cu", "launch_transcript",
                    (_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P)),
+    "bn254_path": ("bn254_path.cu", "launch_bn254_path",
+                   (_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P)),
+    "bn254_leaf": ("bn254_leaf.cu", "launch_bn254_leaf",
+                   (_P, _P, ctypes.c_int, ctypes.c_longlong, _P)),
+    "bn254_permute": ("bn254_permute.cu", "launch_bn254_permute",
+                      (_P, _P, ctypes.c_longlong, _P)),
 }
-_HEADERS = ("poseidon_gl.cuh",)
 
 _loaded = {}        # kernel name -> ctypes function
 build_log = {}      # kernel name -> nvcc/ptxas output of the last build
 
 
-def constants_header():
+def gl_constants_header():
     """Text of poseidon_gl_constants.h, from the port's constants."""
     rc = ",\n    ".join(
         ", ".join(f"0x{c:016x}ull" for c in pc.ALL_ROUND_CONSTANTS[i:i + 4])
@@ -60,6 +69,55 @@ def constants_header():
         f"    {rc}}};\n")
 
 
+def _u64_rows(words, per_row):
+    return ",\n    ".join(
+        ", ".join(f"0x{w:016x}ull" for w in words[i:i + per_row])
+        for i in range(0, len(words), per_row))
+
+
+def bn254_constants_header():
+    """Text of poseidon_bn254_constants.h: the modulus, -p^-1 mod 2^64,
+    R^2 mod p, and the round constants and MDS in Montgomery form (R =
+    2^256), each Fr as four little-endian u64 words, from the port's copy of
+    the constants."""
+    p = pbc.P_BN254
+    r = 1 << 256
+    c, m = pbc.generate()
+
+    def words(v):
+        return [(v >> (64 * k)) & ((1 << 64) - 1) for k in range(4)]
+
+    rc = [w for v in c for w in words(v * r % p)]
+    mds = [w for row in m for v in row for w in words(v * r % p)]
+    np0 = (-pow(p, -1, 1 << 64)) % (1 << 64)
+    return (
+        "// Generated by ops/_build.py from constants/poseidon_bn254.py.\n"
+        "#pragma once\n#include <cstdint>\n"
+        f"constexpr int BN_HALF_FULL_ROUNDS = {pbc.FULL_ROUNDS // 2};\n"
+        f"constexpr int BN_PARTIAL_ROUNDS = {pbc.PARTIAL_ROUNDS};\n"
+        f"constexpr uint64_t BN_NP0 = 0x{np0:016x}ull;\n"
+        f"__constant__ uint64_t BN_P[4] = {{{_u64_rows(words(p), 4)}}};\n"
+        f"__constant__ uint64_t BN_R2[4] = "
+        f"{{{_u64_rows(words(r * r % p), 4)}}};\n"
+        f"__constant__ uint64_t BN_MDS[{len(mds)}] = {{\n"
+        f"    {_u64_rows(mds, 4)}}};\n"
+        f"__constant__ uint64_t BN_RC[{len(rc)}] = {{\n"
+        f"    {_u64_rows(rc, 4)}}};\n")
+
+
+GENERATED = {"poseidon_gl_constants.h": gl_constants_header,
+             "poseidon_bn254_constants.h": bn254_constants_header}
+
+
+def header_texts():
+    """{header file name: text} of every header a kernel may include: the
+    generated constants headers, and every *.cuh and *.h file in csrc/."""
+    texts = {name: fn() for name, fn in GENERATED.items()}
+    for path in sorted((*CSRC.glob("*.cuh"), *CSRC.glob("*.h"))):
+        texts[path.name] = path.read_text()
+    return texts
+
+
 def find_nvcc():
     for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                               "bin", "nvcc"), shutil.which("nvcc")):
@@ -69,11 +127,14 @@ def find_nvcc():
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def _lib_path(name, header):
+def lib_path(name, texts):
+    """Where kernel `name`'s library lives: the digest covers its source,
+    the text of every header (`texts`, as from `header_texts`, whether the
+    source includes it or not) and the nvcc flags."""
     h = hashlib.sha256()
-    for part in (KERNELS[name][0],) + _HEADERS:
-        h.update((CSRC / part).read_bytes())
-    h.update(header.encode())
+    h.update((CSRC / KERNELS[name][0]).read_bytes())
+    for hdr in sorted(texts):
+        h.update(hdr.encode() + b"\0" + texts[hdr].encode() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -82,10 +143,11 @@ def build_all():
     """Compile every kernel that is not built yet, all nvcc processes at
     once.  Returns {name: seconds} for the kernels compiled by this call;
     raises RuntimeError with the compiler's output if one fails."""
-    header = constants_header()
+    texts = header_texts()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    (BUILD_DIR / "poseidon_gl_constants.h").write_text(header)
-    todo = {n: _lib_path(n, header) for n in KERNELS}
+    for name in GENERATED:
+        (BUILD_DIR / name).write_text(texts[name])
+    todo = {n: lib_path(n, texts) for n in KERNELS}
     todo = {n: p for n, p in todo.items() if not p.exists()}
     if not todo:
         return {}
@@ -118,8 +180,7 @@ def kernel(name):
     """The C entry point of kernel `name`, building it at first use."""
     fn = _loaded.get(name)
     if fn is None:
-        header = constants_header()
-        path = _lib_path(name, header)
+        path = lib_path(name, header_texts())
         if not path.exists():
             build_all()
         _, symbol, argtypes = KERNELS[name]

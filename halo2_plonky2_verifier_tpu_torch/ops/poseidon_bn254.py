@@ -1,0 +1,120 @@
+"""Poseidon over BN254 Fr and the plonky2x hashing conventions, plain
+PyTorch.
+
+Counterpart of `halo2_plonky2_verifier_tpu/ops/poseidon_bn254.py`: the
+circomlib t=4 instance (x^5 S-box, 8 full + 56 partial rounds) in naive round
+form, with the state in Montgomery form inside the permutation.  These
+functions are the plain versions that the BN254 kernels K4, K5 and K6 are
+held against (`ops/bn254_kernels.py`).
+
+A state is (..., 4, 4) int64: four Fr elements of four u64 words each.  The
+MDS mix adds the raw product columns of each row and reduces once per row
+(4 p^2 < R p), which keeps the plain permutation affordable on the CPU.
+"""
+
+import functools
+
+import torch
+
+from ..constants.poseidon_bn254 import (FULL_ROUNDS, PARTIAL_ROUNDS, RATE,
+                                        WIDTH, generate)
+from . import bn254 as fr
+
+ROUNDS = FULL_ROUNDS + PARTIAL_ROUNDS
+HALF = FULL_ROUNDS // 2
+
+
+def mont_tables():
+    """Host tables: round constants (ROUNDS * WIDTH ints) and the MDS
+    (WIDTH x WIDTH ints), both in Montgomery form."""
+    c, m = generate()
+    return ([v * fr.R % fr.P for v in c],
+            [[v * fr.R % fr.P for v in row] for row in m])
+
+
+@functools.lru_cache(maxsize=None)
+def _round_constants(device):
+    """(ROUNDS, 4, 16) Montgomery-form round constants as limbs."""
+    c, _ = mont_tables()
+    return fr.to_limbs(fr.from_ints(c, device)).reshape(ROUNDS, WIDTH,
+                                                        fr.N_LIMBS)
+
+
+@functools.lru_cache(maxsize=None)
+def _mds():
+    """The Montgomery-form MDS as a tuple of rows (a hashable constant)."""
+    return tuple(tuple(row) for row in mont_tables()[1])
+
+
+def _sbox5(x):
+    x2 = fr.mont_mul_limbs(x, x)
+    x4 = fr.mont_mul_limbs(x2, x2)
+    return fr.mont_mul_limbs(x4, x)
+
+
+def permute_mont_limbs(state):
+    """(..., 4, 16) canonical Montgomery limbs -> the permuted state."""
+    rc, mds = _round_constants(state.device), _mds()
+    for r in range(ROUNDS):
+        state = fr.add_mod_limbs(state, rc[r])
+        if r < HALF or r >= ROUNDS - HALF:
+            state = _sbox5(state)
+        else:
+            state = torch.cat([_sbox5(state[..., :1, :]), state[..., 1:, :]],
+                              dim=-2)
+        # new[i] = sum_j M[i][j] * state[j]
+        state = fr.mont_matvec_limbs(mds, state)
+    return state
+
+
+def permute_mont(state):
+    """(..., 4, 4) canonical Montgomery words -> the permuted state."""
+    return fr.from_limbs(permute_mont_limbs(fr.to_limbs(state)))
+
+
+def permute(state):
+    """Standard-form (..., 4, 4) state -> standard-form permuted state."""
+    return fr.from_mont(permute_mont(fr.to_mont(state)))
+
+
+# ----------------------------------------------------------------------------
+# plonky2x hashing conventions (reference: hash.rs, permutation.rs:205-252)
+# ----------------------------------------------------------------------------
+
+def absorb_mont(state, gl_words):
+    """Absorb (..., k) Goldilocks words into a (..., 4, 4) Montgomery state:
+    chunks of RATE * 3 = 9, each triple packed into one Fr overwriting slot
+    1 + j (a partial last chunk overwrites only the ceil(len/3) slots it
+    covers), one permutation per chunk."""
+    k = gl_words.shape[-1]
+    for i in range(0, k, RATE * 3):
+        chunk = gl_words[..., i:i + RATE * 3]
+        slots = [fr.to_mont(fr.pack_goldilocks(chunk[..., j:j + 3]))
+                 for j in range(0, chunk.shape[-1], 3)]
+        state = permute_mont(torch.cat(
+            [state[..., :1, :], torch.stack(slots, dim=-2),
+             state[..., 1 + len(slots):, :]], dim=-2))
+    return state
+
+
+def hash_no_pad_mont(gl_words):
+    """Sponge over (..., k) Goldilocks words -> Montgomery Fr state[0]."""
+    state = torch.zeros(gl_words.shape[:-1] + (WIDTH, 4), dtype=torch.int64,
+                        device=gl_words.device)
+    return absorb_mont(state, gl_words)[..., 0, :]
+
+
+def hash_or_noop_gl(gl_words):
+    """(..., k) Goldilocks words -> standard-form Fr (..., 4): packed for
+    k <= 3, else the sponge."""
+    if gl_words.shape[-1] <= 3:
+        return fr.pack_goldilocks(gl_words)
+    return fr.from_mont(hash_no_pad_mont(gl_words))
+
+
+def two_to_one(left, right):
+    """left, right: standard-form Fr (..., 4); zero state with slots 2, 3."""
+    zero = torch.zeros_like(left)
+    state = torch.stack([zero, zero, fr.to_mont(left), fr.to_mont(right)],
+                        dim=-2)
+    return fr.from_mont(permute_mont(state)[..., 0, :])

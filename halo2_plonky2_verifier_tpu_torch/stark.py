@@ -1,11 +1,16 @@
 """Top-level batched STARK verification in PyTorch.
 
-`build_verifier(stark, config, degree_bits)` returns `verify(batch) -> (B,)
-bool`: the challenge derivation through one transcript run (kernel K2), the
-vanishing-polynomial / quotient consistency check at zeta, and FRI with every
-Merkle path through kernels K1 and K3.  Counterpart of
-`halo2_plonky2_verifier_tpu/stark.py:build_verifier` for the
-Poseidon-Goldilocks hasher and transcript.
+`build_verifier(stark, config, degree_bits, hasher, transcript)` returns
+`verify(batch) -> (B,) bool`: the challenge derivation through one
+transcript run, the vanishing-polynomial / quotient consistency check at
+zeta, and FRI with every Merkle path.  Counterpart of
+`halo2_plonky2_verifier_tpu/stark.py:build_verifier`, for both of its
+hashers and both of its transcripts:
+
+  hasher "poseidon_goldilocks": Merkle leaves through K3, paths through K1;
+  hasher "poseidon_bn254":      leaves through K5, paths through K4;
+  transcript "poseidon_goldilocks": one K2 launch for the whole sponge;
+  transcript "poseidon_bn254":      one K6 launch per sponge step.
 
 A verification runs on the device of the batch it is given: on a CUDA batch
 every kernel of the path launches; on a CPU batch their plain versions run.
@@ -16,9 +21,11 @@ from itertools import product as iter_product
 import torch
 
 from .fri import verify_fri
+from .hashing import get_hash_ops
 from .ops import goldilocks as gl
 from .ops import goldilocks_ext as gle
-from .transcript import TranscriptSchedule, extract, extract_ext, run_schedule
+from .transcript import (BN254TranscriptSchedule, TranscriptSchedule, extract,
+                         extract_ext, run_schedule, run_schedule_bn254)
 from .witness import ProofBatch, canonicality_verdict, proof_shape
 
 
@@ -177,13 +184,21 @@ def fri_instance_polys(shape):
     return trace + zs + quot, trace + zs
 
 
-def challenge_stream(batch):
+TRANSCRIPTS = {"poseidon_goldilocks": (TranscriptSchedule, run_schedule),
+               "poseidon_bn254": (BN254TranscriptSchedule, run_schedule_bn254)}
+
+
+def challenge_stream(batch, transcript="poseidon_goldilocks"):
     """The transcript of a batch: its schedule, the observed element stream
     (B, n_elements) in observation order, and the ChallengeRefs of every
-    challenge (order of challenger/mod.rs:168-222)."""
+    challenge (order of challenger/mod.rs:168-222).  A cap is observed hash
+    by hash through the hasher's `to_gl_elements` (challenger/mod.rs:65-74):
+    a Goldilocks hash as its 4 elements, a BN254 hash as its 5 56-bit
+    limbs."""
     S = batch.shape
     B = batch.batch_size
-    sched = TranscriptSchedule()
+    H = get_hash_ops(S.hasher)
+    sched = TRANSCRIPTS[transcript][0]()
     parts = []
 
     def observe(t):
@@ -191,7 +206,10 @@ def challenge_stream(batch):
         sched.observe(flat.shape[1])
         parts.append(flat)
 
-    observe(batch.trace_cap)
+    def observe_cap(cap):
+        observe(H.to_gl_elements(cap))
+
+    observe_cap(batch.trace_cap)
     perm_refs = None
     if S.uses_permutation:
         perm_refs = [
@@ -199,9 +217,9 @@ def challenge_stream(batch):
              for _ in range(S.num_challenges)]
             for _ in range(S.num_challenge_sets)
         ]
-        observe(batch.zs_cap)
+        observe_cap(batch.zs_cap)
     alpha_refs = sched.get_n_challenges(S.num_challenges)
-    observe(batch.quotient_cap)
+    observe_cap(batch.quotient_cap)
     zeta_ref = sched.get_extension_challenge()
 
     # openings in to_fri_openings order
@@ -216,7 +234,7 @@ def challenge_stream(batch):
     fri_alpha_ref = sched.get_extension_challenge()
     beta_refs = []
     for cap in batch.commit_caps:
-        observe(cap)
+        observe_cap(cap)
         beta_refs.append(sched.get_extension_challenge())
     observe(batch.final_poly)
     observe(batch.pow_witness[:, None])
@@ -234,11 +252,14 @@ def challenge_stream(batch):
 def build_verifier(stark, config, degree_bits,
                    hasher="poseidon_goldilocks",
                    transcript="poseidon_goldilocks"):
-    """Returns verify(batch: ProofBatch) -> (B,) bool tensor."""
-    if hasher != "poseidon_goldilocks":
-        raise NotImplementedError(f"hasher {hasher!r} is not ported yet")
-    if transcript != "poseidon_goldilocks":
-        raise NotImplementedError(f"transcript {transcript!r} is not ported yet")
+    """Returns verify(batch: ProofBatch) -> (B,) bool tensor.  `hasher`
+    selects the Merkle commitment hash and `transcript` the Fiat-Shamir
+    sponge, each "poseidon_goldilocks" or "poseidon_bn254"; any other name
+    raises ValueError."""
+    get_hash_ops(hasher)
+    if transcript not in TRANSCRIPTS:
+        raise ValueError(f"unknown transcript {transcript!r}")
+    run = TRANSCRIPTS[transcript][1]
     shape = proof_shape(stark, config, degree_bits, hasher)
 
     def verify(batch: ProofBatch):
@@ -250,8 +271,8 @@ def build_verifier(stark, config, degree_bits,
         verdict = canonicality_verdict(batch)
 
         # 1. transcript: one sponge run over the observed element stream
-        sched, elements, refs = challenge_stream(batch)
-        ys = run_schedule(sched, elements)
+        sched, elements, refs = challenge_stream(batch, transcript)
+        ys = run(sched, elements)
 
         # 2. challenge values
         zeta = extract_ext(ys, refs["zeta"])

@@ -9,6 +9,11 @@ The port's state carried across from the JAX package is a proof batch:
 `batch_from_numpy` takes the leaves of a JAX `ProofBatch` (numpy (hi, lo)
 uint32 arrays in pytree order) and `load_batch_npz` reads the columnar
 fixtures that `witness.save_batch_npz` wrote, with numpy alone.
+
+Hash-typed fields (caps and siblings) hold (..., 4) int64 words under both
+hashers: four Goldilocks elements, or the four little-endian u64 words of
+one BN254 Fr element.  The JAX package keeps a BN254 hash as ONE (..., 16)
+uint32 leaf of 16-bit limbs; the loader packs it into words.
 """
 
 from dataclasses import dataclass, fields
@@ -17,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .hashing import get_hash_ops, pack_hi_lo
 from .ops import goldilocks as gl
 
 
@@ -139,6 +145,10 @@ _FIELDS = ("trace_cap", "zs_cap", "quotient_cap", "local_values", "next_values",
            "commit_caps", "final_poly", "pow_witness", "initial_evals",
            "initial_siblings", "step_evals", "step_siblings", "public_inputs")
 _OPTIONAL = ("zs_cap", "permutation_zs", "permutation_zs_next")
+# hash-typed fields: Merkle caps and siblings (`hash_arrays` in the JAX
+# package's witness.py)
+HASH_FIELDS = ("trace_cap", "zs_cap", "quotient_cap", "commit_caps",
+               "initial_siblings", "step_siblings")
 assert set(_FIELDS) == {f.name for f in fields(ProofBatch)} - {"shape"}
 
 
@@ -161,32 +171,34 @@ def _leaf_counts(shape):
 
 
 def u64_fields(leaves, shape):
-    """JAX ProofBatch leaves (numpy (hi, lo) uint32 arrays in pytree order)
-    -> {field: uint64 array, list of arrays, or None}.  The pytree drops a
-    None field and flattens a list field entry by entry; each pair gives hi,
-    then lo."""
+    """JAX ProofBatch leaves (numpy arrays in pytree order) -> {field: uint64
+    array, list of arrays, or None}.  The pytree drops a None field and
+    flattens a list field entry by entry; a Goldilocks array is a (hi, lo)
+    pair of leaves, a hash array (caps and siblings) whatever the hasher's
+    `jax_leaves` and `from_jax_leaves` say."""
+    H = get_hash_ops(shape.hasher)
     leaves = list(leaves)
     pos = 0
 
-    def take():
+    def take(n, pack):
         nonlocal pos
-        if pos + 2 > len(leaves):
+        if pos + n > len(leaves):
             raise ValueError("too few leaves for this proof shape")
-        hi, lo = (np.asarray(x) for x in leaves[pos:pos + 2])
-        pos += 2
-        if hi.shape != lo.shape:
-            raise ValueError(f"hi/lo shape mismatch {hi.shape} {lo.shape}")
-        return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+        arrays = [np.asarray(x) for x in leaves[pos:pos + n]]
+        pos += n
+        return pack(*arrays)
 
     out = {}
     for f, count in _leaf_counts(shape).items():
+        n, pack = ((H.jax_leaves, H.from_jax_leaves) if f in HASH_FIELDS
+                   else (2, pack_hi_lo))
         if count is None:
             out[f] = None
         elif f in ("commit_caps", "initial_evals", "initial_siblings",
                    "step_evals", "step_siblings"):
-            out[f] = [take() for _ in range(count)]
+            out[f] = [take(n, pack) for _ in range(count)]
         else:
-            out[f] = take()
+            out[f] = take(n, pack)
     if pos != len(leaves):
         raise ValueError(f"{len(leaves) - pos} leaves left over for this "
                          "proof shape")
@@ -231,8 +243,8 @@ def load_batch_npz(path, shape, device):
     return batch_from_numpy(npz_leaves(path), shape, device)
 
 
-def _tensors(batch):
-    for f in _FIELDS:
+def _tensors(batch, fields_=_FIELDS):
+    for f in fields_:
         v = getattr(batch, f)
         if v is None:
             continue
@@ -243,11 +255,16 @@ def _tensors(batch):
 
 
 def canonicality_verdict(batch: ProofBatch):
-    """AND over all loaded values being canonical (< p), reduced to (B,)
-    bool: the executor form of the witness range checks.  Every field of a
-    Goldilocks batch, hashes included, holds field elements."""
+    """AND over all loaded values being canonical, reduced to (B,) bool: the
+    executor form of the witness range checks.  Goldilocks values are
+    checked against the Goldilocks modulus, hash arrays against the
+    hasher's (`canonical_ok`: the BN254 modulus for a BN254 hash)."""
+    H = get_hash_ops(batch.shape.hasher)
     b = batch.batch_size
     verdict = torch.ones((b,), dtype=torch.bool, device=batch.device)
-    for t in _tensors(batch):
+    scalars = tuple(f for f in _FIELDS if f not in HASH_FIELDS)
+    for t in _tensors(batch, scalars):
         verdict = verdict & gl.is_canonical(t).reshape(b, -1).all(dim=-1)
+    for t in _tensors(batch, HASH_FIELDS):
+        verdict = verdict & H.canonical_ok(t).reshape(b, -1).all(dim=-1)
     return verdict

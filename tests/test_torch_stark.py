@@ -297,11 +297,15 @@ def test_verifier_rejects_fold_tampering_like_refimpl():
     assert _port_verdicts(128, proofs) == want
 
 
-def test_build_verifier_rejects_unported_backends():
-    with pytest.raises(NotImplementedError):
-        build_verifier(FibonacciStark(8), CONFIG, 3, hasher="poseidon_bn254")
-    with pytest.raises(NotImplementedError):
-        build_verifier(FibonacciStark(8), CONFIG, 3, transcript="poseidon_bn254")
+@pytest.mark.parametrize("backend", ["hasher", "transcript"])
+def test_build_verifier_rejects_unported_backends(backend):
+    """Both BN254 backends build (alone and together); an unknown hasher or
+    transcript name still raises."""
+    for kw in ({backend: "poseidon_bn254"},
+               {"hasher": "poseidon_bn254", "transcript": "poseidon_bn254"}):
+        assert callable(build_verifier(FibonacciStark(8), CONFIG, 3, **kw))
+    with pytest.raises(ValueError):
+        build_verifier(FibonacciStark(8), CONFIG, 3, **{backend: "sha256"})
 
 
 _NO_JAX = textwrap.dedent("""
@@ -322,13 +326,24 @@ _NO_JAX = textwrap.dedent("""
     sys.path.insert(0, sys.argv[1])
 
     from halo2_plonky2_verifier_tpu_torch import (StarkConfig, build_verifier,
-                                                  load_batch_npz, proof_shape)
+                                                  load_batch_npz, proof_shape,
+                                                  witness)
     from halo2_plonky2_verifier_tpu_torch.models.fibonacci import FibonacciStark
 
     stark, config = FibonacciStark(32), StarkConfig.standard_fast_config()
     batch = load_batch_npz(sys.argv[2], proof_shape(stark, config, 5), "cpu")
     verdict = build_verifier(stark, config, 5)(batch)
     assert verdict.tolist() == [True] * 8, verdict
+
+    # the all-BN254 configuration: BN254 caps and the BN254 transcript
+    shape = proof_shape(stark, config, 5, "poseidon_bn254")
+    fields = witness.u64_fields(witness.npz_leaves(sys.argv[3]), shape)
+    fields = {k: (None if v is None else [x[:2] for x in v]
+                  if isinstance(v, list) else v[:2]) for k, v in fields.items()}
+    verdict = build_verifier(stark, config, 5, hasher="poseidon_bn254",
+                             transcript="poseidon_bn254")(
+        witness.batch_from_u64(fields, shape, "cpu"))
+    assert verdict.tolist() == [True] * 2, verdict
     loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not loaded, loaded
     print("verified without jax")
@@ -336,11 +351,14 @@ _NO_JAX = textwrap.dedent("""
 
 
 def test_port_verifies_in_a_process_without_jax():
-    """The card's machine has no jax: the port must import and verify with
-    every import of jax (and of the JAX package) refused."""
+    """The card's machine has no jax: the port must import and verify a
+    Goldilocks and an all-BN254 batch with every import of jax (and of the
+    JAX package) refused."""
     out = subprocess.run(
         [sys.executable, "-c", _NO_JAX, REPO,
-         os.path.join(FIXTURES, "fib_stark_n32_x8.npz")],
+         os.path.join(FIXTURES, "fib_stark_n32_x8.npz"),
+         os.path.join(FIXTURES,
+                      "fib_stark_n32_poseidon_bn254_bn254sponge_x8.npz")],
         capture_output=True, text=True, timeout=300, cwd=REPO)
     assert out.returncode == 0, out.stderr[-4000:]
     assert "verified without jax" in out.stdout

@@ -1,9 +1,11 @@
 """Where the time goes in one verify of the PyTorch port, on a CUDA card.
 
-For each size of the main path (FibonacciStark n=2^11 B=1024 and n=2^5
-B=4096, the batches of `chip_smoke.py`), this builds the kernels, times
-three warm `verify(batch)` calls without the profiler, then traces one more
-under `torch.profiler` (CPU and CUDA activities) and writes:
+For each drive of `chip_smoke.py` (FibonacciStark n=2^11 B=1024 and n=2^5
+B=4096 under Goldilocks caps and transcript; the same two sizes under BN254
+caps with the Goldilocks transcript; n=2^5 B=4096 all-BN254), this builds
+the kernels, times three warm `verify(batch)` calls without the profiler,
+then traces one more under `torch.profiler` (CPU and CUDA activities) and
+writes:
 
   <out>/profile_summary.json   per size: best unprofiled wall ms, profiled
                                wall ms, device busy ms (sum of the traced
@@ -15,16 +17,29 @@ under `torch.profiler` (CPU and CUDA activities) and writes:
   <out>/profile_<size>.txt     the profiler's key_averages tables, sorted by
                                device time and by host time.
 
-Usage: python3 tools/torch_profile.py [--out DIR]   (default build/torch_profile)
-Needs one CUDA card and nvcc; imports no jax.
+With --clock-probe it instead asks why K4 and K5 take less time inside a
+verify than back to back (as `chip_smoke.py` times them).  On the BN254
+n=2^11 B=1024 drive it times every K4 and K5 launch of three verifies with
+CUDA events, then runs each of them four times back to back, on random
+inputs made as `chip_smoke.py` makes them and on the inputs captured from
+the verify, and twice more alone after an idle second.  `nvidia-smi`
+samples the SM clock, power draw and temperature every 20 ms throughout;
+<out>/clock_probe.json holds each window's launch times and samples.
+
+Usage: python3 tools/torch_profile.py [--out DIR] [--clock-probe]
+       (default DIR build/torch_profile).  Needs one CUDA card and nvcc;
+       imports no jax.
 """
 
 import argparse
 import json
 import os
+import statistics
+import subprocess
 import sys
 import time
 from collections import defaultdict
+from datetime import datetime
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -33,16 +48,29 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chip_smoke import FIXTURES, fibonacci_shape, tiled_fields  # noqa: E402
-from halo2_plonky2_verifier_tpu_torch import build_verifier, witness  # noqa: E402
+import numpy as np  # noqa: E402
+
+from chip_smoke import (BN, FIXTURES, GLH, SEED, fibonacci_shape,  # noqa: E402
+                        path_inputs, rand_fr, rand_gl, tiled_fields)
+from halo2_plonky2_verifier_tpu_torch import (build_verifier,  # noqa: E402
+                                              hashing, witness)
 from halo2_plonky2_verifier_tpu_torch.ops import _build  # noqa: E402
+from halo2_plonky2_verifier_tpu_torch.ops import goldilocks as gl  # noqa: E402
 
 SIZES = (
-    ("n2048_B1024", 2048, 11, "fib_stark_n2048_x32.npz", 1024),
-    ("n32_B4096", 32, 5, "fib_stark_n32_x32.npz", 4096),
+    # tag, n, degree_bits, fixture, B, hasher, transcript
+    ("n2048_B1024", 2048, 11, "fib_stark_n2048_x32.npz", 1024, GLH, GLH),
+    ("n32_B4096", 32, 5, "fib_stark_n32_x32.npz", 4096, GLH, GLH),
+    ("bn254_n2048_B1024", 2048, 11, "fib_stark_n2048_poseidon_bn254_x8.npz",
+     1024, BN, GLH),
+    ("bn254_n32_B4096", 32, 5, "fib_stark_n32_poseidon_bn254_x32.npz", 4096,
+     BN, GLH),
+    ("allbn254_n32_B4096", 32, 5,
+     "fib_stark_n32_poseidon_bn254_bn254sponge_x8.npz", 4096, BN, BN),
 )
 PORT_KERNELS = ("merkle_path_kernel", "transcript_kernel",
-                "leaf_sponge_kernel")
+                "leaf_sponge_kernel", "bn254_path_kernel", "bn254_leaf_kernel",
+                "bn254_permute_kernel")
 
 
 def kernel_group(name):
@@ -54,11 +82,12 @@ def kernel_group(name):
     return "aten elementwise/index/other"
 
 
-def profile_size(num_rows, degree_bits, fixture, size):
-    fib, config, shape = fibonacci_shape(num_rows, degree_bits)
+def profile_size(num_rows, degree_bits, fixture, size, hasher, transcript):
+    fib, config, shape = fibonacci_shape(num_rows, degree_bits, hasher)
     fields = tiled_fields(os.path.join(FIXTURES, fixture), shape, size)
     batch = witness.batch_from_u64(fields, shape, "cuda")
-    verify = build_verifier(fib, config, degree_bits)
+    verify = build_verifier(fib, config, degree_bits, hasher=hasher,
+                            transcript=transcript)
 
     if not bool(verify(batch).all()):
         raise AssertionError(f"n={num_rows} B={size}: valid proofs rejected")
@@ -112,19 +141,176 @@ def profile_size(num_rows, degree_bits, fixture, size):
     return summary, table
 
 
+SMI_FIELDS = "timestamp,clocks.sm,power.draw,temperature.gpu"
+
+
+def _smi_samples(path):
+    """[(epoch s, SM MHz, W, deg C)] from the sampler's csv output."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            parts = [x.strip() for x in line.split(",")]
+            if len(parts) != 4:
+                continue
+            try:
+                t = datetime.strptime(parts[0], "%Y/%m/%d %H:%M:%S.%f")
+                rows.append((t.timestamp(), float(parts[1]),
+                             float(parts[2]), float(parts[3])))
+            except ValueError:
+                continue
+    return rows
+
+
+def _events():
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def clock_probe(out):
+    """See the module docstring (--clock-probe)."""
+    smi_path = os.path.join(out, "clock_probe_smi.csv")
+    with open(smi_path, "w") as f:
+        sampler = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu={SMI_FIELDS}",
+             "--format=csv,noheader,nounits", "-lms", "20"], stdout=f)
+    try:
+        windows = _clock_probe_windows()
+    finally:
+        sampler.terminate()
+        sampler.wait(timeout=30)
+    samples = _smi_samples(smi_path)
+    for w in windows:
+        inside = [r for r in samples if w["t0"] <= r[0] <= w["t1"]]
+        w["smi_samples"] = len(inside)
+        if inside:
+            clk = [r[1] for r in inside]
+            w["sm_mhz_min_median_max"] = [min(clk), statistics.median(clk),
+                                          max(clk)]
+            w["power_w_max"] = max(r[2] for r in inside)
+            w["temp_c_max"] = max(r[3] for r in inside)
+    result = {"windows": windows, "smi_samples_total": len(samples)}
+    with open(os.path.join(out, "clock_probe.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    for w in windows:
+        print(json.dumps({k: v for k, v in w.items()
+                          if k not in ("t0", "t1")}), flush=True)
+
+
+def _clock_probe_windows():
+    fib, config, shape = fibonacci_shape(2048, 11, BN)
+    fields = tiled_fields(os.path.join(
+        FIXTURES, "fib_stark_n2048_poseidon_bn254_x8.npz"), shape, 1024)
+    batch = witness.batch_from_u64(fields, shape, "cuda")
+    verify = build_verifier(fib, config, 11, hasher=BN, transcript=GLH)
+    H = hashing.BN254HashOps
+    k4, k5 = H.verify_paths, H.leaf_hash
+    launches, captured, windows = [], {}, []
+
+    def timed(kernel, name_of):
+        def run(*args):
+            tag = name_of(args)
+            captured.setdefault(tag, [a.clone() for a in args])
+            start, end = _events()
+            start.record()
+            res = kernel(*args)
+            end.record()
+            launches.append((tag, start, end))
+            return res
+        return staticmethod(run)
+
+    def window(tag, fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        windows.append({"window": tag, "t0": t0, "t1": time.time(),
+                        "wall_ms": (time.time() - t0) * 1e3})
+        return windows[-1]
+
+    def launches_ms():
+        torch.cuda.synchronize()
+        out = defaultdict(list)
+        for tag, start, end in launches:
+            out[tag].append(start.elapsed_time(end))
+        launches.clear()
+        return dict(out)
+
+    H.verify_paths = timed(k4, lambda a: "K4")
+    H.leaf_hash = timed(k5, lambda a: f"K5 w={a[0].shape[0]}")
+    try:
+        window("warm-up verify", lambda: verify(batch))
+        launches_ms()
+        time.sleep(2)
+        for i in range(3):
+            w = window(f"verify {i}", lambda: verify(batch))
+            w["launch_ms"] = launches_ms()
+    finally:
+        H.verify_paths, H.leaf_hash = staticmethod(k4), staticmethod(k5)
+
+    rng = np.random.default_rng(SEED)
+    m = 1024 * 84
+    rand = {"K4": path_inputs(rng, (8, 8, 8, 4, 0), m,
+                              lambda n: rand_fr(rng, (n,)),
+                              lambda d, n: rand_fr(rng, (d, n))),
+            "K5 w=32": (gl.from_u64(rand_gl(rng, (32, 2 * m)), "cuda"),)}
+    runs = [("random", tag, args) for tag, args in rand.items()]
+    runs += [("from the verify", tag, args)
+             for tag, args in sorted(captured.items())]
+    for mode, tag, args in runs:
+        kernel = k4 if tag == "K4" else k5
+        ms = []
+
+        def back_to_back():
+            for _ in range(4):
+                start, end = _events()
+                start.record()
+                kernel(*args)
+                end.record()
+                ms.append((start, end))
+
+        time.sleep(2)
+        w = window(f"{tag} {mode}, 4 back to back", back_to_back)
+        w["launch_ms"] = [s.elapsed_time(e) for s, e in ms]
+        if tag == "K4":
+            w["active_levels"] = int(args[3].sum())
+            w["lanes"] = int(args[0].shape[1])
+        for i in range(2):
+            ms.clear()
+            time.sleep(1)
+            w = window(f"{tag} {mode}, alone after 1 s idle ({i})",
+                       lambda: ms.append(_timed_once(kernel, args)))
+            w["launch_ms"] = [ms[0]]
+    return windows
+
+
+def _timed_once(kernel, args):
+    start, end = _events()
+    start.record()
+    kernel(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(REPO, "build",
                                                   "torch_profile"))
+    ap.add_argument("--clock-probe", action="store_true",
+                    help="time K4 and K5 inside a verify and back to back, "
+                         "with SM clock and power samples")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA card")
     os.makedirs(args.out, exist_ok=True)
     _build.build_all()
+    if args.clock_probe:
+        clock_probe(args.out)
+        return
 
     summaries = {}
-    for tag, num_rows, degree_bits, fixture, size in SIZES:
-        summary, table = profile_size(num_rows, degree_bits, fixture, size)
+    for tag, *spec in SIZES:
+        summary, table = profile_size(*spec)
         summaries[tag] = summary
         with open(os.path.join(args.out, f"profile_{tag}.txt"), "w") as f:
             f.write(table + "\n")
