@@ -4,24 +4,38 @@
 Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
 
   1. device: the card's name and power limit;
-  2. build: nvcc for every kernel of the verifier's paths, all at once;
+  2. build: nvcc for every kernel of the port, all at once;
   3. kernels: K1 (Merkle paths), K2 (transcript), K3 (leaf sponge), K4
-     (BN254 Merkle paths), K5 (BN254 leaf hash, w = 4, 2, 32) and K6 (the
-     BN254 permutation), each against its plain PyTorch version on the same
-     seeded inputs at the shapes of the main paths; the results must be
-     equal (tolerance 0: these are integers).  Both are timed on the card
-     with CUDA events.  The BN254 plain versions are compared on a sample of
-     lanes that covers every Merkle slot (so every depth and width); the
-     kernel is timed at the full shape;
-  4. the drives, each through `build_verifier` on a tiled fixture: every
-     verdict must be True, every kernel of the path must have launched, a
-     tampered batch must give the expected verdicts, and its first lanes
-     must match the plain path run on the CPU (32 lanes Goldilocks, 8 BN254):
-       GL fold shape      n=2^11 B=1024, Goldilocks caps and transcript
-       GL flagship        n=2^5  B=4096
-       BN254 fold shape   n=2^11 B=1024, BN254 caps, Goldilocks transcript
-       BN254 flagship     n=2^5  B=4096, the same configuration
-       all-BN254          n=2^5  B=4096, BN254 caps and BN254 transcript;
+     (BN254 Merkle paths), K5 (BN254 leaf hash, w = 4, 2, 32), K6 (the
+     BN254 permutation), K7 (the bulk Goldilocks permutation, 2^21 states),
+     K8 (64 chained Goldilocks permutations on 2^18 states) and K9 (the
+     BN254 component probes, 2^16 lanes, chain 64), each against its plain
+     PyTorch version on the same seeded inputs at the shapes of the main
+     paths; the results must be equal (tolerance 0: these are integers, and
+     the f32 probe's values are integers below 2^17).  Both are timed on the
+     card with CUDA events.  The BN254 plain versions, K8's and K9's are
+     compared on a sample of lanes (for K4 and K5 one that covers every
+     Merkle slot, so every depth and width); the kernel is timed at the full
+     shape.  K9's whole-permutation probe is compared at a chain of 2 and
+     timed at the full chain;
+  4. the drives, each with every kernel's launch count set to 0 just before
+     it and read just after; every kernel of the drive must have launched:
+     a. through `build_verifier` on a tiled fixture: every verdict must be
+        True, a tampered batch must give the expected verdicts, and its
+        first lanes must match the plain path run on the CPU (32 lanes
+        Goldilocks, 8 BN254); K7-K9 must not launch:
+          GL fold shape      n=2^11 B=1024, Goldilocks caps and transcript
+          GL flagship        n=2^5  B=4096
+          BN254 fold shape   n=2^11 B=1024, BN254 caps, Goldilocks transcript
+          BN254 flagship     n=2^5  B=4096, the same configuration
+          all-BN254          n=2^5  B=4096, BN254 caps and BN254 transcript;
+     b. GL bulk hash: the batch-last `permute`, `hash_no_pad` at k = 8, 13
+        and 60 and `two_to_one` of `ops/poseidon.py`, each on 2^17 seeded
+        lanes (K7), the first 64 lanes equal to the plain path on the CPU;
+     c. SOL probes: `tools/torch_sol_bench.py:measure_poseidon_sol` (K7, K8,
+        K1), each probe's M perm/s and share of its bound;
+     d. BN254 component probes: `tools/torch_bn254_micro.py:measure` (K9),
+        ns per iteration per lane of each probe;
   5. one JSON line listing the kernels (launches per drive, times, the
      least time the card could take for the same work), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -34,7 +48,7 @@ Usage: python3 chip_smoke.py        (needs one CUDA card and nvcc)
 import json
 import math
 import os
-import subprocess
+import sys
 import time
 
 import numpy as np
@@ -47,11 +61,23 @@ from halo2_plonky2_verifier_tpu_torch.models.fibonacci import FibonacciStark
 from halo2_plonky2_verifier_tpu_torch.ops import _build
 from halo2_plonky2_verifier_tpu_torch.ops import bn254 as fr
 from halo2_plonky2_verifier_tpu_torch.ops import bn254_kernels as bk
+from halo2_plonky2_verifier_tpu_torch.ops import bn254_micro_kernels as mk9
 from halo2_plonky2_verifier_tpu_torch.ops import goldilocks as gl
 from halo2_plonky2_verifier_tpu_torch.ops import merkle_kernels as mk
+from halo2_plonky2_verifier_tpu_torch.ops import poseidon as pos
+from halo2_plonky2_verifier_tpu_torch.ops import poseidon_kernels as pk
 from halo2_plonky2_verifier_tpu_torch.ops import transcript_kernels as tk
+from halo2_plonky2_verifier_tpu_torch.utils.roofline import (BN_MONT_MUL,
+                                                            BN_PERM_MULS,
+                                                            BN_REDC,
+                                                            GL_PERM_MULS,
+                                                            bound)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.append(os.path.join(REPO, "tools"))
+import torch_bn254_micro  # noqa: E402
+import torch_sol_bench  # noqa: E402
+
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
 SEED = 20261016
 DEVICE = "cuda"
@@ -60,49 +86,21 @@ GLH = "poseidon_goldilocks"
 
 WRAPPERS = {"K1": mk.verify_paths_planes, "K2": tk.run_steps_planes,
             "K3": mk.hash_no_pad_planes, "K4": bk.verify_paths_mont_planes,
-            "K5": bk.hash_or_noop_mont_planes, "K6": bk.permute_planes}
-
-# The least time the card could take (bound_ms): the larger of the bytes a
-# kernel must move (inputs read once, outputs written once) over the H100
-# SXM's 3.35 TB/s, and its integer multiplies over the card's peak rate for
-# them: 132 SMs x 64 32-bit IMAD per clock (compute capability 9.0) x 1.98
-# GHz boost.  A multiply is one 32 x 32 -> 64-bit partial product of the
-# schoolbook method on 32-bit words (a square of n words takes n(n+1)/2),
-# and each permutation is counted in its cheapest known form, whatever form
-# the kernel computes:
-#   Goldilocks (2 words): product 4, square 3, an element times a small MDS
-#   constant 2; S-box x^7 = 2 squares + 2 products.  plonky2's schedule with
-#   the fast partial layer: 8 full rounds of 12 S-boxes and the circulant
-#   MDS (145 small products); the partial layer's initial 11 x 11 matrix
-#   once; 22 partial rounds of one S-box, 22 products (w_hat and v rows) and
-#   one small product (mds_partial_layer_fast).
-#   BN254 (8 words): product 64, square 36, Montgomery reduction (REDC)
-#   8 * (1 + 8) = 72; S-box x^5 = 2 squares + 1 product, each reduced.  The
-#   optimized schedule of refimpl/poseidon_bn254_opt.py: 8 full rounds of 4
-#   S-boxes and a dense mix (4 rows of 4 products and one REDC); 56 partial
-#   rounds of one S-box and a sparse mix (row 0: 4 products, one REDC;
-#   rows 1-3: one product and one REDC each).
-HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 132 * 64 * 1.98e9
-GL_MUL, GL_SQR, GL_SMALL = 4, 3, 2
-GL_SBOX = 2 * GL_SQR + 2 * GL_MUL
-GL_PERM_MULS = (8 * (12 * GL_SBOX + 145 * GL_SMALL) + 11 * 11 * GL_MUL
-                + 22 * (GL_SBOX + 22 * GL_MUL + GL_SMALL))          # 6,436
-BN_MUL, BN_SQR, BN_REDC = 64, 36, 72
-BN_MONT_MUL = BN_MUL + BN_REDC
-BN_SBOX = 2 * (BN_SQR + BN_REDC) + BN_MONT_MUL
-BN_PERM_MULS = (8 * (4 * BN_SBOX + 4 * (4 * BN_MUL + BN_REDC))
-                + 56 * (BN_SBOX + 7 * BN_MUL + 4 * BN_REDC))        # 82,688
+            "K5": bk.hash_or_noop_mont_planes, "K6": bk.permute_planes,
+            "K7": pk.permute_planes, "K8": pk.permute_planes_chained,
+            "K9": mk9.run_probe}
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters):
+def cuda_ms(fn, iters, warm_up=True):
     """Mean milliseconds of fn() on the card over `iters` runs, after one
-    warm-up run (CUDA events around the whole run)."""
-    fn()
+    warm-up run unless `warm_up` is False (CUDA events around the whole
+    run)."""
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -112,14 +110,6 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound(nbytes, muls):
-    """(bound_ms, bound_by) for a kernel moving `nbytes` and doing `muls`
-    integer multiplies."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, muls / IMAD_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def rand_gl(rng, shape):
@@ -183,7 +173,9 @@ def check_kernels(rng, B=1024, Q=84):
     """Phase 3: each kernel against its plain version at main-path shapes
     (B proofs of Q queries).  Returns {K: stats}."""
     m = B * Q
-    cases = {}   # K -> list of (kernel fn, plain fn, pick, what, bytes, muls)
+    # K -> list of (kernel fn, plain fn, pick, what, (bound_ms, bound_by) of
+    # the timed run, timed fn or None for the kernel fn)
+    cases = {}
 
     # K1: the n=2^11 slots (3 oracles of depth 8, step trees of depth 4, 0)
     depths = (8, 8, 8, 4, 0)
@@ -195,8 +187,8 @@ def check_kernels(rng, B=1024, Q=84):
     cases["K1"] = [(lambda: mk.verify_paths_planes(*args),
                     lambda: mk.verify_paths_planes_plain(*args), None,
                     f"N={n} d_max={d_max}",
-                    n * (32 + 8 + 32) + d_max * n * (32 + 4),
-                    int(active.sum()) * GL_PERM_MULS)]
+                    bound(n * (32 + 8 + 32) + d_max * n * (32 + 4),
+                          int(active.sum()) * GL_PERM_MULS), None)]
 
     # K2: the transcript schedule of the n=2^11 proofs, B=1024
     shape = fibonacci_shape(2048, 11)[2]
@@ -209,15 +201,16 @@ def check_kernels(rng, B=1024, Q=84):
     cases["K2"] = [(lambda: tk.run_steps_planes(chunks, mask),
                     lambda: tk.run_steps_planes_plain(chunks, mask), None,
                     f"n_steps={n_steps} B={B}",
-                    2 * chunks.numel() * 8 + mask.numel() * 4,
-                    n_steps * B * GL_PERM_MULS)]
+                    bound(2 * chunks.numel() * 8 + mask.numel() * 4,
+                          n_steps * B * GL_PERM_MULS), None)]
 
     # K3: the two step-leaf slots of the n=2^11 proofs, w=32
     leaves = gl.from_u64(rand_gl(rng, (32, 2 * m)), DEVICE)
     cases["K3"] = [(lambda: mk.hash_no_pad_planes(leaves),
                     lambda: mk.hash_no_pad_planes_plain(leaves), None,
-                    f"w=32 N={2 * m}", leaves.numel() * 8 + 2 * m * 32,
-                    4 * 2 * m * GL_PERM_MULS)]
+                    f"w=32 N={2 * m}",
+                    bound(leaves.numel() * 8 + 2 * m * 32,
+                          4 * 2 * m * GL_PERM_MULS), None)]
 
     # K4: the BN254 fold shape's slots, node in Montgomery form, some
     # siblings >= p (as in a tampered proof); the plain version on 64 lanes
@@ -238,38 +231,84 @@ def check_kernels(rng, B=1024, Q=84):
                     lambda: bk.verify_paths_mont_planes_plain(*sub), pick,
                     f"N={bnode.shape[1]} d_max={d_max} (plain on "
                     f"N={pick.numel()})",
-                    n * (32 + 8 + 32) + d_max * n * (32 + 4),
-                    n_act * (BN_PERM_MULS + BN_MONT_MUL) + n * BN_REDC)]
+                    bound(n * (32 + 8 + 32) + d_max * n * (32 + 4),
+                          n_act * (BN_PERM_MULS + BN_MONT_MUL) + n * BN_REDC),
+                    None)]
 
     # K5: the BN254 fold shape's three leaf widths, one launch each
     cases["K5"] = []
     for w, lanes in ((4, m), (2, 2 * m), (32, 2 * m)):
         x = gl.from_u64(rand_gl(rng, (w, lanes)), DEVICE)
-        pk = sample_lanes(lanes, lanes // m, 128)
-        xs = x[:, pk].contiguous()
+        pick5 = sample_lanes(lanes, lanes // m, 128)
+        xs = x[:, pick5].contiguous()
         perms = 0 if w <= 3 else math.ceil(w / 9)
         conv = 1 if w <= 3 else math.ceil(w / 3)
         cases["K5"].append((
             (lambda x=x: bk.hash_or_noop_mont_planes(x)),
-            (lambda xs=xs: bk.hash_or_noop_mont_planes_plain(xs)), pk,
-            f"w={w} N={lanes} (plain on N={pk.numel()})",
-            x.numel() * 8 + lanes * 32,
-            lanes * (perms * BN_PERM_MULS + conv * BN_MONT_MUL)))
+            (lambda xs=xs: bk.hash_or_noop_mont_planes_plain(xs)), pick5,
+            f"w={w} N={lanes} (plain on N={pick5.numel()})",
+            bound(x.numel() * 8 + lanes * 32,
+                  lanes * (perms * BN_PERM_MULS + conv * BN_MONT_MUL)), None))
 
     # K6: one BN254 transcript step of the all-BN254 drive, B=4096, whole
     nb = 4 * B
     st = gl.from_u64(rand_fr(rng, (nb, 4)).reshape(nb, 16).T.copy(), DEVICE)
     cases["K6"] = [(lambda: bk.permute_planes(st),
                     lambda: bk.permute_planes_plain(st), None,
-                    f"N={nb} (one transcript step)", 2 * st.numel() * 8,
-                    nb * BN_PERM_MULS)]
+                    f"N={nb} (one transcript step)",
+                    bound(2 * st.numel() * 8, nb * BN_PERM_MULS), None)]
+
+    # K7: the SOL bench's streamed probe, 2^21 states, every lane compared;
+    # some lanes hold words >= p (the kernel takes any u64)
+    n7 = 1 << 21
+    x7 = rand_gl(rng, (12, n7))
+    x7[:, ::1021] |= np.uint64(0xFFFFFFFF00000000)
+    st7 = gl.from_u64(x7, DEVICE)
+    cases["K7"] = [(lambda: pk.permute_planes(st7),
+                    lambda: pk.permute_planes_plain(st7), None, f"N={n7}",
+                    bound(2 * st7.numel() * 8, n7 * GL_PERM_MULS), None)]
+
+    # K8: the SOL bench's chained probe, chain 64 over 2^18 states; the
+    # plain version on 4096 lanes
+    n8, chain8 = 1 << 18, 64
+    st8 = gl.from_u64(rand_gl(rng, (12, n8)), DEVICE)
+    pick8 = sample_lanes(n8, 1, 4096)
+    sub8 = st8[:, pick8].contiguous()
+    cases["K8"] = [(lambda: pk.permute_planes_chained(st8, chain8),
+                    lambda: pk.permute_planes_chained_plain(sub8, chain8),
+                    pick8, f"chain={chain8} N={n8} (plain on "
+                    f"N={pick8.numel()})",
+                    bound(2 * st8.numel() * 8, n8 * chain8 * GL_PERM_MULS),
+                    None)]
+
+    # K9: every run of tools/torch_bn254_micro.py at its lanes and chain;
+    # the plain version on 4096 lanes, the whole permutation compared at a
+    # chain of 2 (one plain BN254 permutation takes about half a second on
+    # the card) and timed at the full chain
+    lanes9, chain9 = torch_bn254_micro.LANES, torch_bn254_micro.CHAIN
+    pick9 = sample_lanes(lanes9, 1, 4096)
+    cases["K9"] = []
+    for name, threads in torch_bn254_micro.RUNS:
+        x = torch_bn254_micro.probe_input(name, lanes9, rng, DEVICE)
+        xs = x[:, pick9].contiguous()
+        c = 2 if name == "permute" else chain9
+        cases["K9"].append((
+            (lambda x=x, name=name, c=c, t=threads:
+             mk9.run_probe(name, x, c, t)),
+            (lambda xs=xs, name=name, c=c:
+             mk9.run_probe_plain(name, xs, c)), pick9,
+            f"{name} threads={threads} N={lanes9} chain={chain9} (plain on "
+            f"N={pick9.numel()}, chain={c})",
+            torch_bn254_micro.probe_bound(name, lanes9, chain9),
+            (lambda x=x, name=name, t=threads:
+             mk9.run_probe(name, x, chain9, t))))
 
     out = {}
     for name, parts in cases.items():
         stats = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                  "bound_ms": 0.0, "bound_by": "operations",
-                 "library_ms": None, "shapes": []}
-        for kernel, plain, pick, what, nbytes, muls in parts:
+                 "library_ms": None, "parts": []}
+        for kernel, plain, pick, what, (b_ms, b_by), timed in parts:
             got = kernel()
             want = plain()
             torch.cuda.synchronize()
@@ -279,16 +318,19 @@ def check_kernels(rng, B=1024, Q=84):
             if err != 0.0 or not torch.equal(got, want):
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version ({what}): max_abs_err {err}")
-            ms = cuda_ms(kernel, 3)
-            plain_ms = cuda_ms(plain, 1)
-            b_ms, b_by = bound(nbytes, muls)
+            ms = cuda_ms(timed or kernel, 3)
+            plain_ms = cuda_ms(plain, 1, warm_up=False)    # it just ran
             log(f"kernel {name} ({what}): equal to plain; {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
             stats["max_abs_err"] = max(stats["max_abs_err"], err)
             stats["ms"] += ms
             stats["plain_ms"] += plain_ms
             stats["bound_ms"] += b_ms
-            stats["shapes"].append(what)
+            stats["parts"].append({"what": what, "ms": ms,
+                                   "plain_ms": plain_ms, "bound_ms": b_ms,
+                                   "bound_by": b_by})
+        stats["bound_by"] = max(stats["parts"],
+                                key=lambda p: p["bound_ms"])["bound_by"]
         out[name] = stats
     return out
 
@@ -358,6 +400,25 @@ def tamper_bn254(fields):
     return f, [1, 2, 3, 4, 5, 6, 7]
 
 
+def counted(name, run, expected, absent=()):
+    """run() with every kernel's launch count set to 0 just before it;
+    returns (the counts just after it, run()'s result).  Raises if a kernel
+    of `expected` never launched or one of `absent` did."""
+    for w in WRAPPERS.values():
+        w.launches = 0
+    result = run()
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in WRAPPERS.items()}
+    for k in expected:
+        if counts[k] < 1:
+            raise AssertionError(f"{name}: kernel {k} never launched")
+    for k in absent:
+        if counts[k] != 0:
+            raise AssertionError(f"{name}: kernel {k} launched {counts[k]} "
+                                 f"times")
+    return counts, result
+
+
 def drive(name, num_rows, degree_bits, fixture, size, hasher, transcript_,
           expected, tamper_fn, lanes, device_line):
     """Verify a real batch through the port's entry point on the card,
@@ -370,17 +431,11 @@ def drive(name, num_rows, degree_bits, fixture, size, hasher, transcript_,
     verify = build_verifier(fib, config, degree_bits, hasher=hasher,
                             transcript=transcript_)
 
-    for w in WRAPPERS.values():
-        w.launches = 0
-    verdict = verify(batch)
-    torch.cuda.synchronize()
-    counts = {k: w.launches for k, w in WRAPPERS.items()}
+    counts, verdict = counted(name, lambda: verify(batch), expected,
+                              absent=("K7", "K8", "K9"))
     if verdict.shape != (size,) or not bool(verdict.all()):
         raise AssertionError(f"{name}: valid proofs rejected: "
                              f"{int((~verdict).sum())} of {size}")
-    for k in expected:
-        if counts[k] < 1:
-            raise AssertionError(f"{name}: kernel {k} never launched")
     log(f"{name}: {size} valid proofs verified; launches {counts}")
 
     times = []
@@ -429,6 +484,72 @@ DRIVES = (
 )
 
 
+def drive_bulk_hash(rng, device_line, lanes=1 << 17, cpu_lanes=64):
+    """The batch-last bulk hashing API of `ops/poseidon.py` on `lanes`
+    seeded lanes on the card (K7), each call's first `cpu_lanes` lanes held
+    against the plain path on the CPU; returns the launch counts and the
+    best wall time of the whole set of calls."""
+    left, right = rand_gl(rng, (lanes, 4)), rand_gl(rng, (lanes, 4))
+    calls = [("permute", pos.permute, (rand_gl(rng, (lanes, 12)),), 12)]
+    calls += [(f"hash_no_pad k={k}", pos.hash_no_pad,
+               (rand_gl(rng, (lanes, k)),), 4) for k in (8, 13, 60)]
+    calls += [("two_to_one", pos.two_to_one, (left, right), 4)]
+    args = [[gl.from_u64(a, DEVICE) for a in c[2]] for c in calls]
+
+    def run():
+        return [fn(*a) for (_, fn, _, _), a in zip(calls, args)]
+
+    counts, outs = counted("GL bulk hash", run, ("K7",))
+    for (what, fn, host, width), out in zip(calls, outs):
+        if out.shape != (lanes, width):
+            raise AssertionError(f"GL bulk hash {what}: shape {out.shape}")
+        cpu = fn(*(gl.from_u64(a[:cpu_lanes]) for a in host))
+        if not torch.equal(out[:cpu_lanes].cpu(), cpu):
+            raise AssertionError(f"GL bulk hash {what}: the card and the CPU "
+                                 f"plain path differ")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    per_call = ", ".join(
+        f"{what} {cuda_ms(lambda fn=fn, a=a: fn(*a), 3):.4f} ms"
+        for (what, fn, _, _), a in zip(calls, args))
+    log(f"GL bulk hash: {lanes} lanes, first {cpu_lanes} equal the CPU plain "
+        f"path; launches {counts}; {min(times) * 1e3:.2f} ms for all, best "
+        f"of 3 (per call, CUDA events: {per_call}) on {device_line}")
+    return counts, min(times)
+
+
+def drive_sol():
+    """`measure_poseidon_sol` on the card (K7, K8, K1); returns the launch
+    counts, the wall time and the probes' rows."""
+    t0 = time.perf_counter()
+    counts, (pps, _, rows) = counted(
+        "SOL probes",
+        lambda: torch_sol_bench.measure_poseidon_sol(device=DEVICE, log=log),
+        ("K7", "K8", "K1"))
+    if not all(math.isfinite(r["perm_per_sec"]) and r["perm_per_sec"] > 0
+               for r in rows):
+        raise AssertionError(f"SOL probes: rates {rows}")
+    log(f"SOL probes: best {pps / 1e6:.2f} M perm/s; launches {counts}")
+    return counts, time.perf_counter() - t0, rows
+
+
+def drive_bn254_micro():
+    """`tools/torch_bn254_micro.py:measure` on the card (K9); returns the
+    launch counts, the wall time and the probes' rows."""
+    t0 = time.perf_counter()
+    counts, rows = counted(
+        "BN254 component probes",
+        lambda: torch_bn254_micro.measure(device=DEVICE, log=log), ("K9",))
+    if not all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows):
+        raise AssertionError(f"BN254 component probes: times {rows}")
+    log(f"BN254 component probes: launches {counts}")
+    return counts, time.perf_counter() - t0, rows
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -436,13 +557,9 @@ def main():
 
     # 1. the device
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    device_line = smi.splitlines()[0]
+    device_line = torch_sol_bench.card_line()
     log(f"device: {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
-    log(smi)
+    log(device_line)
 
     # 2. build
     t0 = time.monotonic()
@@ -450,7 +567,8 @@ def main():
     log(f"build: {time.monotonic() - t0:.1f} s for {sorted(built)}")
     for name, text in sorted(_build.build_log.items()):
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 log(f"ptxas {name}: {line.strip()}")
 
     # 3. each kernel against its plain version
@@ -461,30 +579,44 @@ def main():
     counts, walls = {}, {}
     for name, *spec in DRIVES:
         counts[name], walls[name] = drive(name, *spec, device_line)
+    counts["GL bulk hash"], walls["GL bulk hash"] = drive_bulk_hash(
+        rng, device_line)
+    counts["SOL probes"], walls["SOL probes"], sol_rows = drive_sol()
+    (counts["BN254 component probes"], walls["BN254 component probes"],
+     micro_rows) = drive_bn254_micro()
 
     # 5. the kernels line, then the contract's last line
     src = "halo2_plonky2_verifier_tpu_torch/ops/csrc/"
     pallas = "halo2_plonky2_verifier_tpu/ops/"
     meta = {
-        "K1": ("merkle_path", "merkle_path.cu", "merkle_pallas.py:39"),
-        "K2": ("transcript", "transcript.cu", "transcript_pallas.py:37"),
-        "K3": ("leaf_sponge", "leaf_sponge.cu", "merkle_pallas.py:159"),
-        "K4": ("bn254_path", "bn254_path.cu", "poseidon_bn254_pallas.py:518"),
-        "K5": ("bn254_leaf", "bn254_leaf.cu", "poseidon_bn254_pallas.py:422"),
+        "K1": ("merkle_path", "merkle_path.cu",
+               pallas + "merkle_pallas.py:39"),
+        "K2": ("transcript", "transcript.cu",
+               pallas + "transcript_pallas.py:37"),
+        "K3": ("leaf_sponge", "leaf_sponge.cu",
+               pallas + "merkle_pallas.py:159"),
+        "K4": ("bn254_path", "bn254_path.cu",
+               pallas + "poseidon_bn254_pallas.py:518"),
+        "K5": ("bn254_leaf", "bn254_leaf.cu",
+               pallas + "poseidon_bn254_pallas.py:422"),
         "K6": ("bn254_permute", "bn254_permute.cu",
-               "poseidon_bn254_pallas.py:412"),
+               pallas + "poseidon_bn254_pallas.py:412"),
+        "K7": ("permute", "permute.cu", pallas + "poseidon_pallas.py:293"),
+        "K8": ("permute_chained", "permute_chained.cu",
+               pallas + "poseidon_pallas.py:368"),
+        "K9": ("bn254_micro", "bn254_micro.cu", "tools/bn254_micro.py:45"),
     }
     kernels = []
     for k, (name, source, replaces) in meta.items():
         by_drive = {d: counts[d][k] for d in counts}
         kernels.append({
             "name": f"{k} {name}", "route": "cuda", "source": src + source,
-            "replaces": pallas + replaces,
+            "replaces": replaces,
             "launches": sum(by_drive.values()), "launches_by_drive": by_drive,
             "matched": True, **kstats[k]})
     print(json.dumps({"kernels": kernels, "card": device_line,
-                      "wall_ms_best_of_3": {d: w * 1e3
-                                            for d, w in walls.items()}}),
+                      "sol_probes": sol_rows, "bn254_probes": micro_rows,
+                      "wall_ms": {d: w * 1e3 for d, w in walls.items()}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,10 +4,12 @@ kernels written for NVIDIA Hopper (sm_90a).
 The port of `halo2_plonky2_verifier_tpu` (JAX/Pallas), which stays beside it
 as the reference.  This package imports torch and numpy and never jax: a
 Goldilocks element is one int64 lane holding the u64 bit pattern, a BN254
-element four such words, and the six Pallas kernels of the verifier's paths
-(Goldilocks and BN254 Merkle paths and leaf hashes, the Goldilocks
-transcript, the BN254 permutation) are CUDA kernels in `ops/csrc/`, built
-with nvcc at first use.
+element four such words, and the nine Pallas kernels of the JAX package and
+its tools (Goldilocks and BN254 Merkle paths and leaf hashes, the Goldilocks
+transcript, the BN254 permutation, the bulk and chained Goldilocks
+permutations, the BN254 component probes) are CUDA kernels in `ops/csrc/`,
+built with nvcc at first use.  The bulk Goldilocks hashing API is
+`ops/poseidon.py` (`permute`, `absorb`, `hash_no_pad`, `two_to_one`).
 
 Public API:
     build_verifier(stark, config, degree_bits, hasher=..., transcript=...)

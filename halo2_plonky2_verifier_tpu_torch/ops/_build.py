@@ -45,6 +45,13 @@ KERNELS = {
                    (_P, _P, ctypes.c_int, ctypes.c_longlong, _P)),
     "bn254_permute": ("bn254_permute.cu", "launch_bn254_permute",
                       (_P, _P, ctypes.c_longlong, _P)),
+    "permute": ("permute.cu", "launch_permute",
+                (_P, _P, ctypes.c_longlong, _P)),
+    "permute_chained": ("permute_chained.cu", "launch_permute_chained",
+                        (_P, _P, ctypes.c_longlong, ctypes.c_int, _P)),
+    "bn254_micro": ("bn254_micro.cu", "launch_bn254_micro",
+                    (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                     ctypes.c_int, _P)),
 }
 
 _loaded = {}        # kernel name -> ctypes function

@@ -1,0 +1,47 @@
+// K8: `chain` Poseidon-Goldilocks permutations in a row on each state, the
+// state held in registers throughout, one thread per state.
+//
+// Replaces halo2_plonky2_verifier_tpu/ops/poseidon_pallas.py:
+// _permute_chained_call_impl (inner kernel, a fori_loop over the VMEM-
+// resident state; public permute_planes_chained), the "chained" and "mid"
+// speed-of-light probes of tools/sol_bench.py.  Plain version and wrapper:
+// ops/poseidon_kernels.py:permute_planes_chained_plain /
+// permute_planes_chained.
+//
+// Layout as K7: (12, N) u64 planes, lanes the fastest axis.  chain = 0
+// copies the input (fori_loop(0, 0) returns its operand).
+//
+// Bound: the integer multiplies of `chain` permutations per lane; the memory
+// traffic is one read and one write of the state for all of them, so at the
+// probe's chain 64 the kernel measures the permutation's compute rate.
+
+#include <cuda_runtime.h>
+
+#include "poseidon_gl.cuh"
+
+__global__ void permute_chained_kernel(const uint64_t* __restrict__ in,
+                                       uint64_t* __restrict__ out, int64_t n,
+                                       int chain) {
+  const int64_t lane = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  uint64_t s[12];
+#pragma unroll
+  for (int e = 0; e < 12; ++e) s[e] = in[e * n + lane];
+#pragma unroll 1
+  for (int c = 0; c < chain; ++c) gl::poseidon_gl_permute(s);
+#pragma unroll
+  for (int e = 0; e < 12; ++e) out[e * n + lane] = s[e];
+}
+
+extern "C" int launch_permute_chained(const void* in, void* out, long long n,
+                                      int chain, void* stream) {
+  if (chain < 0) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const int threads = 128;
+    const long long blocks = (n + threads - 1) / threads;
+    permute_chained_kernel<<<(unsigned)blocks, threads, 0,
+                             (cudaStream_t)stream>>>(
+        (const uint64_t*)in, (uint64_t*)out, (int64_t)n, chain);
+  }
+  return (int)cudaGetLastError();
+}

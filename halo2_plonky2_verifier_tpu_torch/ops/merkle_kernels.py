@@ -22,7 +22,7 @@ Layout: lanes last, (rows, N) int64, as in the JAX package's plane form.
 import torch
 
 from . import _build
-from .poseidon import W, permute_planes, two_to_one_planes
+from .poseidon import W, permute_planes_plain, two_to_one_planes_plain
 
 
 def _check(t, name, shape, dtype):
@@ -59,7 +59,7 @@ def verify_paths_planes_plain(node, siblings, idx, active):
         right = (idx & 1).bool()                 # the node is the right child
         left_in = torch.where(right, sib, node)
         right_in = torch.where(right, node, sib)
-        new = two_to_one_planes(left_in, right_in)
+        new = two_to_one_planes_plain(left_in, right_in)
         node = torch.where(active[level].bool(), new, node)
         idx = idx >> 1
     return node
@@ -99,7 +99,8 @@ def hash_no_pad_planes_plain(inputs):
     state = torch.zeros((W, n), dtype=torch.int64, device=inputs.device)
     for off in range(0, w, 8):
         k = min(8, w - off)
-        state = permute_planes(torch.cat([inputs[off:off + k], state[k:]]))
+        state = permute_planes_plain(
+            torch.cat([inputs[off:off + k], state[k:]]))
     return state[:4]
 
 

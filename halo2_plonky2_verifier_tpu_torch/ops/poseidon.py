@@ -1,10 +1,21 @@
-"""Poseidon over Goldilocks in plane layout, plain PyTorch.
+"""Poseidon over Goldilocks: the plain plane path, the dispatching plane
+entry points and the batch-last bulk hashing API.
 
-A state is a (12, N) int64 tensor: the state element on the leading axis and
-N independent lanes after it, the layout of the JAX package's plane path
-(`halo2_plonky2_verifier_tpu/ops/poseidon.py:187-304`).  These functions are
-the plain versions that every Goldilocks kernel of the port is held against
-(`ops/merkle_kernels.py`, `ops/transcript_kernels.py`).
+A plane state is a (12, N) int64 tensor: the state element on the leading
+axis and N independent lanes after it, the layout of the JAX package's plane
+path (`halo2_plonky2_verifier_tpu/ops/poseidon.py:187-304`).  The `*_plain`
+functions are plain PyTorch and call only plain functions: they are what
+every Goldilocks kernel of the port is held against (`ops/merkle_kernels.py`,
+`ops/transcript_kernels.py`, `ops/poseidon_kernels.py`).  `permute_planes`
+and the functions built on it dispatch: kernel K7 for a CUDA tensor, the
+plain version for a CPU tensor, and no other switch (the JAX package's
+2^17-lane threshold, `ops/poseidon.py:134-141` there, keeps XLA's fusion on
+a TPU; eager PyTorch has no fusion to lose).
+
+The batch-last API (`zero_state`, `permute`, `absorb`, `hash_no_pad`,
+`hash_or_noop`, `two_to_one`) mirrors `ops/poseidon.py:144,310-377` of the
+JAX package on (..., 12) or (..., k) int64 tensors: `permute` lays the
+states out as contiguous (12, N) planes for K7 and back.
 
 Round structure: constant layer -> S-box x^7 (all 12 elements in the 4 + 4
 full rounds, element 0 in the 22 partial rounds) -> circulant MDS plus
@@ -65,7 +76,7 @@ def _mds_planes(state):
     return gl.reduce128(mid >> 32, lo64)
 
 
-def permute_planes(state):
+def permute_planes_plain(state):
     """(12, N) int64 -> the permuted (12, N) state, canonical."""
     rc = _round_constants(state.device)
     r0 = HALF_N_FULL_ROUNDS
@@ -78,6 +89,15 @@ def permute_planes(state):
             state = _sbox(state)
         state = _mds_planes(state)
     return state
+
+
+def permute_planes(state):
+    """(12, N) int64 -> the permuted (12, N) state: kernel K7 for a CUDA
+    tensor, `permute_planes_plain` for a CPU tensor
+    (`ops/poseidon_kernels.py`)."""
+    from . import poseidon_kernels
+
+    return poseidon_kernels.permute_planes(state)
 
 
 def hash_no_pad_planes(inputs):
@@ -98,11 +118,76 @@ def hash_or_noop_planes(inputs):
     return hash_no_pad_planes(inputs)
 
 
-def two_to_one_planes(left, right):
+def _two_to_one_state(left, right):
+    return torch.cat([left, right, torch.zeros_like(left)])
+
+
+def two_to_one_planes_plain(left, right):
     """left/right: (4, N) hash planes -> (4, N) compressed planes."""
-    state = torch.cat([left, right, torch.zeros_like(left)])
-    return permute_planes(state)[:4]
+    return permute_planes_plain(_two_to_one_state(left, right))[:4]
 
 
-__all__ = ["SPONGE_RATE", "W", "permute_planes", "hash_no_pad_planes",
-           "hash_or_noop_planes", "two_to_one_planes"]
+def two_to_one_planes(left, right):
+    """`two_to_one_planes_plain` through `permute_planes` (K7 on the card)."""
+    return permute_planes(_two_to_one_state(left, right))[:4]
+
+
+# ----------------------------------------------------------------------------
+# Batch-last sponge and hashing (plonky2 semantics)
+# ----------------------------------------------------------------------------
+
+def zero_state(shape=(), device="cpu"):
+    """The all-zero (*shape, 12) int64 sponge state."""
+    return torch.zeros(tuple(shape) + (W,), dtype=torch.int64, device=device)
+
+
+def permute(state):
+    """(..., 12) int64 -> the permuted (..., 12) states, canonical."""
+    batch = state.shape[:-1]
+    planes = state.reshape(-1, W).T.contiguous()         # (12, N)
+    return permute_planes(planes).T.reshape(batch + (W,))
+
+
+def _overwrite_prefix(state, chunk):
+    """state[..., :k] = chunk, k = chunk.shape[-1]."""
+    return torch.cat([chunk, state[..., chunk.shape[-1]:]], dim=-1)
+
+
+def absorb(state, inputs):
+    """Overwrite-mode rate-8 sponge absorb of (..., k) inputs: each full
+    chunk of 8 overwrites state[..., :8] and permutes, then a remainder of
+    k % 8 overwrites its prefix and permutes; k = 0 leaves the state as it
+    is (reference: permutation.rs:286-301)."""
+    k = inputs.shape[-1]
+    for off in range(0, k, SPONGE_RATE):
+        state = permute(_overwrite_prefix(state,
+                                          inputs[..., off:off + SPONGE_RATE]))
+    return state
+
+
+def hash_no_pad(inputs):
+    """(..., k) -> (..., 4): plonky2 hash_n_to_m_no_pad with 4 outputs."""
+    state = zero_state(inputs.shape[:-1], inputs.device)
+    return absorb(state, inputs)[..., :4]
+
+
+def hash_or_noop(inputs):
+    """(..., k) -> (..., 4): k <= 4 inputs are zero-padded to 4 with no
+    permutation; wider inputs are sponged (reference: hash/mod.rs:109-119)."""
+    k = inputs.shape[-1]
+    if k <= 4:
+        return torch.nn.functional.pad(inputs, (0, 4 - k))
+    return hash_no_pad(inputs)
+
+
+def two_to_one(left, right):
+    """Compress two (..., 4) hashes: state[0:8] = left || right, one
+    permutation, the first 4 outputs (reference: hash.rs:188-214)."""
+    z = torch.zeros_like(left)
+    return permute(torch.cat([left, right, z], dim=-1))[..., :4]
+
+
+__all__ = ["SPONGE_RATE", "W", "permute_planes", "permute_planes_plain",
+           "hash_no_pad_planes", "hash_or_noop_planes", "two_to_one_planes",
+           "two_to_one_planes_plain", "zero_state", "permute", "absorb",
+           "hash_no_pad", "hash_or_noop", "two_to_one"]

@@ -52,18 +52,29 @@ def _sbox5(x):
     return fr.mont_mul_limbs(x4, x)
 
 
+def mix_mont_limbs(state):
+    """The MDS mix new[i] = sum_j M[i][j] * state[j] on (..., 4, 16)
+    canonical Montgomery limbs, one reduction per row."""
+    return fr.mont_matvec_limbs(_mds(), state)
+
+
+def round_mont_limbs(state, r):
+    """Round r (constant layer, S-box, mix) on (..., 4, 16) canonical
+    Montgomery limbs: every element's S-box in the first and last HALF
+    rounds, element 0's in the partial rounds between."""
+    state = fr.add_mod_limbs(state, _round_constants(state.device)[r])
+    if r < HALF or r >= ROUNDS - HALF:
+        state = _sbox5(state)
+    else:
+        state = torch.cat([_sbox5(state[..., :1, :]), state[..., 1:, :]],
+                          dim=-2)
+    return mix_mont_limbs(state)
+
+
 def permute_mont_limbs(state):
     """(..., 4, 16) canonical Montgomery limbs -> the permuted state."""
-    rc, mds = _round_constants(state.device), _mds()
     for r in range(ROUNDS):
-        state = fr.add_mod_limbs(state, rc[r])
-        if r < HALF or r >= ROUNDS - HALF:
-            state = _sbox5(state)
-        else:
-            state = torch.cat([_sbox5(state[..., :1, :]), state[..., 1:, :]],
-                              dim=-2)
-        # new[i] = sum_j M[i][j] * state[j]
-        state = fr.mont_matvec_limbs(mds, state)
+        state = round_mont_limbs(state, r)
     return state
 
 

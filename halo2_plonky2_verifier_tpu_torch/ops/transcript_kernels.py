@@ -16,7 +16,7 @@ import torch
 
 from . import _build
 from .merkle_kernels import _check, _device
-from .poseidon import SPONGE_RATE, W, permute_planes
+from .poseidon import SPONGE_RATE, W, permute_planes_plain
 
 
 def run_steps_planes_plain(chunks, mask):
@@ -30,7 +30,7 @@ def run_steps_planes_plain(chunks, mask):
     for s in range(n_steps):
         pre = torch.where(mask[s].bool()[:, None], chunks[s],
                           state[:SPONGE_RATE])
-        state = permute_planes(torch.cat([pre, state[SPONGE_RATE:]]))
+        state = permute_planes_plain(torch.cat([pre, state[SPONGE_RATE:]]))
         ys.append(state[:SPONGE_RATE])
     return torch.stack(ys)
 
