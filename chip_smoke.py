@@ -13,11 +13,16 @@ Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
      PyTorch version on the same seeded inputs at the shapes of the main
      paths; the results must be equal (tolerance 0: these are integers, and
      the f32 probe's values are integers below 2^17).  Both are timed on the
-     card with CUDA events.  The BN254 plain versions, K8's and K9's are
-     compared on a sample of lanes (for K4 and K5 one that covers every
+     card with CUDA events (the kernel: the median of 5 launches, each
+     between its own pair of events, queued behind a sleep so that no host
+     delay lands inside a pair).  The BN254 plain versions, K8's and K9's
+     are compared on a sample of lanes (for K4 and K5 one that covers every
      Merkle slot, so every depth and width); the kernel is timed at the full
-     shape.  K9's whole-permutation probe is compared at a chain of 2 and
-     timed at the full chain;
+     shape.  K4's and K6's inputs include carry-stressing values (0, 1,
+     p - 1, p - 2, words of all ones; for K4's siblings also values >= p) on
+     compared lanes, and K6 is also compared on every lane at N = 4097 (a
+     partial last group) and N = 1024.  K9's whole-permutation probe is
+     compared at a chain of 2 and timed at the full chain;
   4. the drives, each with every kernel's launch count set to 0 just before
      it and read just after; every kernel of the drive must have launched:
      a. through `build_verifier` on a tiled fixture: every verdict must be
@@ -48,6 +53,7 @@ Usage: python3 chip_smoke.py        (needs one CUDA card and nvcc)
 import json
 import math
 import os
+import statistics
 import sys
 import time
 
@@ -95,21 +101,26 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters, warm_up=True):
-    """Mean milliseconds of fn() on the card over `iters` runs, after one
-    warm-up run unless `warm_up` is False (CUDA events around the whole
-    run)."""
+def cuda_ms(fn, reps, warm_up=True):
+    """Median milliseconds of one fn() on the card over `reps` calls, after
+    one warm-up call unless `warm_up` is False.  Each call sits between its
+    own pair of CUDA events, and all are queued behind a 10 ms sleep of the
+    card, so a host that is held up while it enqueues them (its cores may be
+    shared) adds no idle time inside a pair; the median, so that one call
+    held up all the same does not set the result (as
+    tools/torch_sol_bench.py:time_chain)."""
     if warm_up:
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(20_000_000)
+    for start, end in pairs:
+        start.record()
         fn()
-    end.record()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
 def rand_gl(rng, shape):
@@ -128,6 +139,19 @@ def rand_fr(rng, shape):
                      dtype=np.uint64, endpoint=True)
     x[..., 3] %= np.uint64(fr.P >> 192)
     return x
+
+
+# Fr values that stress carries and reductions: 0, 1, p - 1, p - 2 and
+# values whose low words are all ones (all canonical); siblings, which may
+# be any 256-bit value, also take p, p + 1, 2p and 2^256 - 1.
+EDGE_FR = (0, 1, fr.P - 1, fr.P - 2, (1 << 64) - 1, (1 << 128) - 1,
+           (1 << 192) - 1, (fr.P >> 192 << 192) - 1)
+EDGE_WIDE = EDGE_FR + (fr.P, fr.P + 1, 2 * fr.P, (1 << 256) - 1)
+
+
+def edge_planes(values):
+    """(4, len(values)) int64 word planes of host ints, on the card."""
+    return fr.from_ints(list(values), DEVICE).T
 
 
 def max_abs_err(a, b):
@@ -176,6 +200,8 @@ def check_kernels(rng, B=1024, Q=84):
     # K -> list of (kernel fn, plain fn, pick, what, (bound_ms, bound_by) of
     # the timed run, timed fn or None for the kernel fn)
     cases = {}
+    # K -> list of (kernel fn, plain fn, what), compared on every lane only
+    checks = {}
 
     # K1: the n=2^11 slots (3 oracles of depth 8, step trees of depth 4, 0)
     depths = (8, 8, 8, 4, 0)
@@ -214,7 +240,8 @@ def check_kernels(rng, B=1024, Q=84):
 
     # K4: the BN254 fold shape's slots, node in Montgomery form, some
     # siblings >= p (as in a tampered proof); the plain version on 64 lanes
-    # of each slot
+    # of each slot, the first 8 of which take the edge values (node EDGE_FR,
+    # siblings EDGE_WIDE, shifted by one a level)
     def bn_sibs(d, n):
         s = rand_fr(rng, (d, n))
         s[0, ::997, 3] = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -222,8 +249,13 @@ def check_kernels(rng, B=1024, Q=84):
 
     bnode, bsib, bidx, bactive = path_inputs(
         rng, depths, m, lambda n: rand_fr(rng, (n,)), bn_sibs)
-    bargs = (bnode, bsib, bidx, bactive)
     pick = sample_lanes(bnode.shape[1], len(depths), 64)
+    edge = pick.reshape(len(depths), 64)[:, :len(EDGE_FR)].reshape(-1)
+    bnode[:, edge] = edge_planes(EDGE_FR * len(depths))
+    for level in range(d_max):
+        vals = EDGE_WIDE[level:] + EDGE_WIDE[:level]
+        bsib[level][:, edge] = edge_planes(vals[:len(EDGE_FR)] * len(depths))
+    bargs = (bnode, bsib, bidx, bactive)
     sub = (bnode[:, pick].contiguous(), bsib[:, :, pick].contiguous(),
            bidx[pick].contiguous(), bactive[:, pick].contiguous())
     n_act = int(bactive.sum())
@@ -250,13 +282,28 @@ def check_kernels(rng, B=1024, Q=84):
             bound(x.numel() * 8 + lanes * 32,
                   lanes * (perms * BN_PERM_MULS + conv * BN_MONT_MUL)), None))
 
-    # K6: one BN254 transcript step of the all-BN254 drive, B=4096, whole
+    # K6: one BN254 transcript step of the all-BN254 drive, B=4096, whole,
+    # its first states made of the edge values; also compared (not timed)
+    # on every lane at N=4097, whose last group of four lanes is partial,
+    # and at N=1024
+    def bn_states(nb):
+        x = rand_fr(rng, (nb, 4))
+        for j in range(min(nb, len(EDGE_FR))):  # state j: EDGE_FR rotated
+            for e in range(4):
+                v = EDGE_FR[(j + e) % len(EDGE_FR)]
+                x[j, e] = [(v >> (64 * k)) & ((1 << 64) - 1)
+                           for k in range(4)]
+        return gl.from_u64(x.reshape(nb, 16).T.copy(), DEVICE)
+
     nb = 4 * B
-    st = gl.from_u64(rand_fr(rng, (nb, 4)).reshape(nb, 16).T.copy(), DEVICE)
+    st = bn_states(nb)
     cases["K6"] = [(lambda: bk.permute_planes(st),
                     lambda: bk.permute_planes_plain(st), None,
                     f"N={nb} (one transcript step)",
                     bound(2 * st.numel() * 8, nb * BN_PERM_MULS), None)]
+    checks["K6"] = [((lambda x=x: bk.permute_planes(x)),
+                     (lambda x=x: bk.permute_planes_plain(x)), f"N={k}")
+                    for k, x in ((k, bn_states(k)) for k in (nb + 1, B))]
 
     # K7: the SOL bench's streamed probe, 2^21 states, every lane compared;
     # some lanes hold words >= p (the kernel takes any u64)
@@ -303,6 +350,16 @@ def check_kernels(rng, B=1024, Q=84):
             (lambda x=x, name=name, t=threads:
              mk9.run_probe(name, x, chain9, t))))
 
+    for name, parts in checks.items():
+        for kernel, plain, what in parts:
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            if err != 0.0 or not torch.equal(got, want):
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version ({what}): max_abs_err {err}")
+            log(f"kernel {name} ({what}): equal to plain on every lane")
+
     out = {}
     for name, parts in cases.items():
         stats = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
@@ -318,7 +375,7 @@ def check_kernels(rng, B=1024, Q=84):
             if err != 0.0 or not torch.equal(got, want):
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version ({what}): max_abs_err {err}")
-            ms = cuda_ms(timed or kernel, 3)
+            ms = cuda_ms(timed or kernel, 5)
             plain_ms = cuda_ms(plain, 1, warm_up=False)    # it just ran
             log(f"kernel {name} ({what}): equal to plain; {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")

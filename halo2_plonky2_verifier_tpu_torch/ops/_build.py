@@ -3,13 +3,14 @@
 Each `csrc/*.cu` source is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface and loaded with `ctypes`.  The build runs at
 first use, never at import, from the sources in this checkout only, into
-`build/torch_kernels/` at the repository root.  The two Poseidon constants
-headers (Goldilocks and BN254) are generated there from the port's copies of
-the constants.  A library's file name carries a digest of everything it was
-built from (its source, the text of every header in csrc/ and of both
-generated ones, and the flags), so a changed source, header or constant is
-rebuilt and an unchanged one is loaded as it is.  A header change rebuilds
-every library, which costs one parallel build.
+`build/torch_kernels/` at the repository root.  The Poseidon constants
+headers (Goldilocks, BN254, and the BN254 optimized schedule) are generated
+there from the port's copies of the constants.  A library's file name
+carries a digest of everything it was built from (its source, the text of
+every header in csrc/ and of every generated one, and the flags), so a
+changed source, header or constant is rebuilt and an unchanged one is loaded
+as it is.  A header change rebuilds every library, which costs one parallel
+build.
 
 All sources are compiled at once, one `nvcc` process each.
 """
@@ -23,6 +24,7 @@ import time
 from pathlib import Path
 
 from ..constants import poseidon_bn254 as pbc
+from ..constants import poseidon_bn254_opt as pbo
 from ..constants import poseidon_goldilocks as pc
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -76,44 +78,63 @@ def gl_constants_header():
         f"    {rc}}};\n")
 
 
-def _u64_rows(words, per_row):
-    return ",\n    ".join(
-        ", ".join(f"0x{w:016x}ull" for w in words[i:i + per_row])
-        for i in range(0, len(words), per_row))
+def _limb_array(name, values):
+    """`__constant__ uint32_t name[8 * len(values)]`: each Fr value as eight
+    little-endian u32 limbs, one value a row."""
+    rows = ",\n    ".join(
+        ", ".join(f"0x{(v >> (32 * k)) & 0xFFFFFFFF:08x}u" for k in range(8))
+        for v in values)
+    return (f"__constant__ uint32_t {name}[{8 * len(values)}] = {{\n    "
+            f"{rows}}};\n")
+
+
+def _flat(nested):
+    return [v for row in nested for v in
+            (_flat(row) if isinstance(row, (list, tuple)) else [row])]
 
 
 def bn254_constants_header():
-    """Text of poseidon_bn254_constants.h: the modulus, -p^-1 mod 2^64,
-    R^2 mod p, and the round constants and MDS in Montgomery form (R =
-    2^256), each Fr as four little-endian u64 words, from the port's copy of
-    the constants."""
+    """Text of poseidon_bn254_constants.h: the modulus p and 2p, -p^-1 mod
+    2^32, R^2 mod p, and the naive schedule's round constants and MDS in
+    Montgomery form (R = 2^256), each Fr as eight little-endian u32 limbs,
+    from the port's copy of the constants."""
     p = pbc.P_BN254
     r = 1 << 256
     c, m = pbc.generate()
-
-    def words(v):
-        return [(v >> (64 * k)) & ((1 << 64) - 1) for k in range(4)]
-
-    rc = [w for v in c for w in words(v * r % p)]
-    mds = [w for row in m for v in row for w in words(v * r % p)]
-    np0 = (-pow(p, -1, 1 << 64)) % (1 << 64)
+    np0 = (-pow(p, -1, 1 << 32)) % (1 << 32)
     return (
         "// Generated by ops/_build.py from constants/poseidon_bn254.py.\n"
         "#pragma once\n#include <cstdint>\n"
         f"constexpr int BN_HALF_FULL_ROUNDS = {pbc.FULL_ROUNDS // 2};\n"
         f"constexpr int BN_PARTIAL_ROUNDS = {pbc.PARTIAL_ROUNDS};\n"
-        f"constexpr uint64_t BN_NP0 = 0x{np0:016x}ull;\n"
-        f"__constant__ uint64_t BN_P[4] = {{{_u64_rows(words(p), 4)}}};\n"
-        f"__constant__ uint64_t BN_R2[4] = "
-        f"{{{_u64_rows(words(r * r % p), 4)}}};\n"
-        f"__constant__ uint64_t BN_MDS[{len(mds)}] = {{\n"
-        f"    {_u64_rows(mds, 4)}}};\n"
-        f"__constant__ uint64_t BN_RC[{len(rc)}] = {{\n"
-        f"    {_u64_rows(rc, 4)}}};\n")
+        f"constexpr uint32_t BN_NP0 = 0x{np0:08x}u;\n"
+        + _limb_array("BN_P", [p]) + _limb_array("BN_2P", [2 * p])
+        + _limb_array("BN_R2", [r * r % p])
+        + _limb_array("BN_MDS", [v * r % p for v in _flat(m)])
+        + _limb_array("BN_RC", [v * r % p for v in c]))
+
+
+def bn254_opt_constants_header():
+    """Text of poseidon_bn254_opt_constants.h: the optimized schedule's
+    tables (`constants/poseidon_bn254_opt.py:round_tables`) in Montgomery
+    form, each Fr as eight little-endian u32 limbs: BN_OPT_PRE and
+    BN_OPT_POST [full round][element], BN_OPT_MIX [full round][row][column],
+    BN_OPT_GAMMA [partial round], BN_OPT_ROW0 [partial round][column] and
+    BN_OPT_COL0 [partial round][row - 1]."""
+    r = 1 << 256
+    p = pbc.P_BN254
+    tables = pbo.round_tables()
+    return (
+        "// Generated by ops/_build.py from constants/poseidon_bn254_opt.py.\n"
+        "#pragma once\n#include <cstdint>\n"
+        + "".join(_limb_array(f"BN_OPT_{key.upper()}",
+                              [v * r % p for v in _flat(tables[key])])
+                  for key in ("pre", "post", "mix", "gamma", "row0", "col0")))
 
 
 GENERATED = {"poseidon_gl_constants.h": gl_constants_header,
-             "poseidon_bn254_constants.h": bn254_constants_header}
+             "poseidon_bn254_constants.h": bn254_constants_header,
+             "poseidon_bn254_opt_constants.h": bn254_opt_constants_header}
 
 
 def header_texts():

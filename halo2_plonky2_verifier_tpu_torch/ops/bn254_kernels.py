@@ -10,10 +10,11 @@ K4, `verify_paths_mont_planes` (csrc/bn254_path.cu), replaces
 `verify_paths_mont_planes` with node_in_mont=True.  K5,
 `hash_or_noop_mont_planes` (csrc/bn254_leaf.cu), replaces
 `hash_or_noop_mont_planes`.  K6, `permute_planes` (csrc/bn254_permute.cu),
-replaces `permute_mont_planes`.  All three are bound by the integer
-multiplies of their permutations (about 120k 32-bit multiplies each): one
-thread per lane keeps the 4 x 4-word state in registers, and every value
-stays canonical, so the kernels equal their plain versions bit for bit.
+replaces `permute_mont_planes`.  All three run the optimized schedule of
+`csrc/poseidon_bn254.cuh` on 32-bit limbs; K4 and K5 keep one state per
+thread, K6 spreads one over four lanes of a warp.  Values stay below 2p
+inside a kernel and are made canonical before they are written, so the
+kernels equal their plain versions (the naive schedule) bit for bit.
 
 Layout: lanes last.  An Fr plane is (4, N) int64, row k = word k; a state
 plane is (16, N), row 4 * e + k = word k of element e.

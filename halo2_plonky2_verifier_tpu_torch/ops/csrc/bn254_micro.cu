@@ -6,20 +6,27 @@
 // Plain version and wrapper: ops/bn254_micro_kernels.py:run_probe_plain /
 // run_probe; the probes' table, with what each computes, is there.
 //
-// Each thread runs `chain` dependent iterations of one part of
-// poseidon_bn254.cuh (the K4-K6 body) on its own lane's Fr values, canonical
-// Montgomery form in and out, so every probe computes a defined function that
-// its plain version reproduces exactly (the TPU probe clamped u16 limbs to
-// keep its chains alive).  Two probes time the bare multipliers: 16
-// dependent u32 multiplies, and 16 dependent f32 multiplies taken with
-// __fmul_rn so that no FMA contraction changes the rounding; their values
-// start from the low 16 bits of the input word.
+// Each thread runs `chain` dependent iterations of one part of the BN254
+// permutation on its own lane's Fr values, canonical Montgomery form in and
+// out, so every probe computes a defined function that its plain version
+// reproduces exactly (the TPU probe clamped u16 limbs to keep its chains
+// alive).  PERMUTE times the K4-K6 body (poseidon_bn254.cuh:permute, the
+// optimized schedule).  The other Fr probes time the naive round's parts
+// (the dense MDS mix, the naive partial round with all four round
+// constants), built below from the body's primitives (mont_mul, dot4,
+// reduce) and made canonical after every step, as their plain versions
+// are.  Two probes time the bare multipliers: 16 dependent u32 multiplies,
+// and 16 dependent f32 multiplies taken with __fmul_rn so that no FMA
+// contraction changes the rounding; their values start from the low 16 bits
+// of the input word.
 //
 // Layout: (rows, N) u64 planes, row 4 * e + k = word k of Fr element e; lanes
 // are the fastest axis.  Each probe is its own template instance, so each
-// gets its own register allocation; the whole permutation is also built for
-// 256 and 512 threads per block under __launch_bounds__, which caps it at
-// 128 registers a thread at 512 (the counterpart of the TPU tile sweep).
+// gets its own register allocation; every instance runs under
+// __launch_bounds__(THREADS, 512 / THREADS), the 128-register budget of K4
+// and K5 (PARTIAL_X2, whose two states would spill there, under twice
+// that), and the whole permutation is also built for 256 and 512 threads
+// per block (the counterpart of the TPU tile sweep).
 //
 // Bound: the probe's multiplies (32-bit IMADs; f32 multiplies for the f32
 // probe), chain per lane; the memory traffic is one read and one write of the
@@ -49,29 +56,66 @@ __host__ __device__ constexpr int probe_elems(int p) {
          : 4;
 }
 
+// The naive parts, canonical in and out.
+__device__ __forceinline__ void mont_mul_canonical(const uint32_t* a,
+                                                   const uint32_t* b,
+                                                   uint32_t r[bn::NL]) {
+  bn::mont_mul(a, b, r);                     // < 1.19p
+  bn::reduce(r, BN_P);
+}
+
+// s <- the dense MDS mix, one reduction per row: < 1.76p, then canonical.
+__device__ __forceinline__ void mds(uint32_t s[bn::WIDTH][bn::NL]) {
+  uint32_t out[bn::WIDTH][bn::NL];
+#pragma unroll
+  for (int f = 0; f < bn::WIDTH; ++f) {
+    bn::dot4(&BN_MDS[f * bn::WIDTH * bn::NL], s, out[f]);
+    bn::reduce(out[f], BN_P);
+  }
+#pragma unroll
+  for (int f = 0; f < bn::WIDTH; ++f) {
+#pragma unroll
+    for (int j = 0; j < bn::NL; ++j) s[f][j] = out[f][j];
+  }
+}
+
+// Naive partial round r: every element plus its round constant, the S-box
+// of element 0, the dense mix.
+__device__ __forceinline__ void partial_round(uint32_t s[bn::WIDTH][bn::NL],
+                                              int r) {
+#pragma unroll
+  for (int e = 0; e < bn::WIDTH; ++e)
+    bn::add_const(s[e], &BN_RC[(r * bn::WIDTH + e) * bn::NL]);  // canonical
+  bn::sbox(s[0]);
+  bn::reduce(s[0], BN_P);
+  mds(s);
+}
+
 template <int PROBE>
-__device__ __forceinline__ void step(uint64_t (*s)[4], int i) {
+__device__ __forceinline__ void step(uint32_t (*s)[bn::NL], int i) {
   if constexpr (PROBE == SQR_REDC) {
-    bn::mont_mul(s[0], s[0], s[0]);
+    mont_mul_canonical(s[0], s[0], s[0]);
   } else if constexpr (PROBE == MONT_MUL) {
-    bn::mont_mul(s[0], s[1], s[0]);
+    mont_mul_canonical(s[0], s[1], s[0]);
   } else if constexpr (PROBE == REDC) {
     bn::from_mont(s[0]);
   } else if constexpr (PROBE == MIX) {
-    bn::mds(s);
+    mds(s);
   } else if constexpr (PROBE == PARTIAL) {
-    bn::partial_round(s, BN_HALF_FULL_ROUNDS + i % BN_PARTIAL_ROUNDS);
+    partial_round(s, BN_HALF_FULL_ROUNDS + i % BN_PARTIAL_ROUNDS);
   } else if constexpr (PROBE == PARTIAL_X2) {
     const int r = BN_HALF_FULL_ROUNDS + i % BN_PARTIAL_ROUNDS;
-    bn::partial_round(s, r);
-    bn::partial_round(s + 4, r);
+    partial_round(s, r);
+    partial_round(s + 4, r);
   } else {
-    bn::poseidon_bn254_permute(s);
+    bn::permute(s);
+    bn::canonical(s);
   }
 }
 
 template <int PROBE, int THREADS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS,
+                                  (PROBE == PARTIAL_X2 ? 256 : 512) / THREADS)
     bn254_micro_kernel(const uint64_t* __restrict__ in,
                        uint64_t* __restrict__ out, int64_t n, int chain) {
   const int64_t lane = blockIdx.x * (int64_t)THREADS + threadIdx.x;
@@ -95,19 +139,13 @@ __global__ void __launch_bounds__(THREADS)
     out[lane] = (uint64_t)x;
   } else {
     constexpr int E = probe_elems(PROBE);
-    uint64_t s[E][4];
+    uint32_t s[E][bn::NL];
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) s[e][k] = in[(e * 4 + k) * n + lane];
-    }
+    for (int e = 0; e < E; ++e) bn::load(in + e * 4 * n + lane, n, s[e]);
 #pragma unroll 1
     for (int i = 0; i < chain; ++i) step<PROBE>(s, i);
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) out[(e * 4 + k) * n + lane] = s[e][k];
-    }
+    for (int e = 0; e < E; ++e) bn::store(out + e * 4 * n + lane, n, s[e]);
   }
 }
 

@@ -1,218 +1,415 @@
-// The Poseidon-BN254 permutation as a __device__ function, shared by the
-// BN254 Merkle-path (K4), leaf-sponge (K5) and standalone-permutation (K6)
-// kernels.
+// The Poseidon-BN254 permutation as __device__ functions, shared by the
+// BN254 Merkle-path (K4), leaf-sponge (K5), standalone-permutation (K6) and
+// component-probe (K9) kernels.
 //
 // Replaces the body that halo2_plonky2_verifier_tpu/ops/
 // poseidon_bn254_pallas.py inlines into _path_kernel, _leaf_kernel and
-// _permute_kernel (_run_rounds).  What it computes, bit for bit, is the plain
-// path of the port (ops/poseidon_bn254.py:permute_mont_limbs): the circomlib
-// t=4 instance, x^5 S-box, 4 full + 56 partial + 4 full rounds, naive round
-// form, every element in canonical Montgomery form (R = 2^256).  Keeping
-// every value canonical makes the result depend on the values only, so it
-// equals the TPU kernels' output although those keep lazy values up to
-// about 2.6p in between; their bf16 MXU products and REDC, the
-// Kogge-Stone normalisation and the lane tiles are TPU layout tricks and
-// are not carried over.
+// _permute_kernel (_run_rounds).  The function is the circomlib t=4 instance
+// (x^5 S-box, 8 full + 56 partial rounds) on Montgomery values (R = 2^256);
+// the kernels' outputs equal the plain path of the port
+// (ops/poseidon_bn254.py:permute_mont_limbs) bit for bit, because every
+// value the kernels write is made canonical first.  The TPU kernels' bf16
+// MXU products, Kogge-Stone normalisation and lane tiles are layout tricks
+// of that chip and are not carried over.
 //
-// An Fr element is four little-endian u64 words.  Products are taken on
-// 64-bit words with __umul64hi and explicit carries: ptxas lowers each
-// 64 x 64 -> 128 product to 32-bit IMADs with carry chains anyway, and the
-// word form keeps the carry code short enough to check by reading.  Writing
-// the 32-bit PTX madc chains by hand is a later performance step.
+// Schedule: the optimized (go-iden3 / plonky2x) form of
+// constants/poseidon_bn254_opt.py, from the generated
+// poseidon_bn254_opt_constants.h: full rounds add a constant before and
+// after the S-box and mix densely (M, or P once at the transition); a
+// partial round is one S-box, one scalar constant and a sparse mix (row 0: a
+// dot product of four, one reduction; rows 1-3: s_k + col0_k * s0, one
+// product and one reduction each).  Against the naive form that cuts a
+// partial round's mix from 16 products and 4 reductions to 7 and 4.
 //
-// Montgomery multiplication is a schoolbook 4 x 4-word product followed by
-// a word-serial REDC (separated operand scanning).  The MDS mix adds the
-// four 512-bit products of a row first and reduces once (4 p^2 < R p), so a
-// round costs 16 wide products + 4 REDCs for the mix.
+// Arithmetic: an Fr value is eight little-endian 32-bit limbs, the width of
+// the card's integer multiplier.  A Montgomery product is CIOS (the
+// reduction interleaved with the product, one limb of b at a time) on a
+// 9-limb window.  A row (window += a * w) takes eight independent wide
+// multiply-adds (IMAD.WIDE.U32) and one chain of add.cc / addc.cc that
+// carries each high word into the next limb, so the carries ride the carry
+// flag instead of being found by comparisons.  (Rows as chains of
+// mad.lo.cc / madc.hi.cc lower to two IMADs and two adds a partial product,
+// and ran slower.)  A product is 16 rows.  dot4 feeds the four products of
+// a matrix row into one window and reduces once.
 //
-// One thread owns one state, 16 u64 words in registers; loops over words
-// and elements are unrolled, the round loops are not (#pragma unroll 1).
-// The round constants (64 x 4 Fr, 8 KiB) and the MDS (16 Fr) live in
-// __constant__ memory: every thread of a warp reads the same entry.  They
-// come from poseidon_bn254_constants.h, which ops/_build.py generates from
-// the port's copy of the constants.
+// Lazy values: p < R / 5.29, so a product with both factors below 2p ends
+// below p + 4p^2 / R < 1.76p without a final subtraction.  Values stay
+// below 2p between operations; after an addition, or where a bound would
+// pass 2p, `reduce` subtracts p (or 2p) once if the value is at least that.
+// Each bound is stated where the code relies on it.  Kernels call
+// `canonical` (or from_mont) before a value leaves them.
+//
+// Registers: one thread's state is 32 limbs; the widest point is the dense
+// mix (old and new state, 64 limbs, and the window).  K4 and K5 run under
+// __launch_bounds__(128, 4): 128 registers a thread (a few bytes spill)
+// and 16 resident warps an SM.
+//
+// permute_group4 is the same schedule spread over four lanes of a warp, one
+// element each (K6; see there).
+//
+// Built by a host compiler (no __CUDACC__), the carry-flag primitives are
+// plain C++ with the flag in a thread-local variable, so the header's
+// arithmetic can be checked on the CPU (tests/test_torch_bn254_opt.py).
 
 #pragma once
 
 #include <cstdint>
 
 #include "poseidon_bn254_constants.h"
+#include "poseidon_bn254_opt_constants.h"
 
 namespace bn {
 
-// out = a + b * c + carry, low word; carry <- high word (never overflows:
-// (2^64 - 1) + (2^64 - 1)^2 + (2^64 - 1) = 2^128 - 1).
-__device__ __forceinline__ void mac(uint64_t a, uint64_t b, uint64_t c,
-                                    uint64_t& carry, uint64_t& out) {
-  uint64_t lo = b * c;
-  uint64_t hi = __umul64hi(b, c);
-  lo += a;
-  hi += (lo < a);
-  lo += carry;
-  hi += (lo < carry);
-  out = lo;
-  carry = hi;
-}
+constexpr int NL = 8;                       // 32-bit limbs of one Fr value
+constexpr int WIDTH = 4;
+constexpr int FULL = 2 * BN_HALF_FULL_ROUNDS;
+constexpr int ROUNDS = FULL + BN_PARTIAL_ROUNDS;
 
-// x - p where x >= p, for x < 2p.
-__device__ __forceinline__ void cond_sub_p(uint64_t x[4]) {
-  uint64_t d[4];
-  uint64_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint64_t s = x[j] - BN_P[j];
-    const uint64_t b1 = x[j] < BN_P[j];
-    d[j] = s - borrow;
-    borrow = b1 | (s < borrow);
+// ---------------------------------------------------------------------------
+// Carry-flag primitives, named after their PTX instructions.  `_cc` writes
+// the carry (for sub: borrow) flag, `c` reads it.
+// ---------------------------------------------------------------------------
+
+#if defined(__CUDACC__)
+
+#define BN_OP2(name, ins)                                                   \
+  __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b) {        \
+    uint32_t r;                                                             \
+    asm volatile(ins " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));            \
+    return r;                                                               \
   }
-  if (!borrow) {
+BN_OP2(add_cc, "add.cc.u32")
+BN_OP2(addc_cc, "addc.cc.u32")
+BN_OP2(addc, "addc.u32")
+BN_OP2(sub_cc, "sub.cc.u32")
+BN_OP2(subc_cc, "subc.cc.u32")
+BN_OP2(subc, "subc.u32")
+#undef BN_OP2
+
+#else  // a host compiler: the same primitives, the flag in a variable
+
+inline thread_local uint32_t carry_flag = 0;
+
+inline uint32_t set_flag(uint64_t s) {
+  carry_flag = (uint32_t)(s >> 32) & 1u;
+  return (uint32_t)s;
+}
+inline uint32_t add_cc(uint32_t a, uint32_t b) {
+  return set_flag((uint64_t)a + b);
+}
+inline uint32_t addc_cc(uint32_t a, uint32_t b) {
+  return set_flag((uint64_t)a + b + carry_flag);
+}
+inline uint32_t addc(uint32_t a, uint32_t b) { return a + b + carry_flag; }
+inline uint32_t sub_cc(uint32_t a, uint32_t b) {
+  return set_flag((uint64_t)a - b);
+}
+inline uint32_t subc_cc(uint32_t a, uint32_t b) {
+  return set_flag((uint64_t)a - b - carry_flag);
+}
+inline uint32_t subc(uint32_t a, uint32_t b) { return a - b - carry_flag; }
+
+#endif
+
+// ---------------------------------------------------------------------------
+// Fr arithmetic on eight limbs
+// ---------------------------------------------------------------------------
+
+// A[0..8] += a[0..7] * w.  The eight products p_j = a_j w + A[j] (< 2^64)
+// are independent wide multiply-adds; one carry chain then adds each
+// product's high word into the next limb.  The caller keeps the result
+// below 2^288, so no carry leaves A[8].
+__device__ __forceinline__ void row(uint32_t A[NL + 1], const uint32_t* a,
+                                    uint32_t w) {
+  uint64_t p[NL];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) x[j] = d[j];
+  for (int j = 0; j < NL; ++j) p[j] = (uint64_t)a[j] * w + A[j];
+  A[0] = (uint32_t)p[0];
+  A[1] = add_cc((uint32_t)p[1], (uint32_t)(p[0] >> 32));
+#pragma unroll
+  for (int j = 2; j < NL; ++j)
+    A[j] = addc_cc((uint32_t)p[j], (uint32_t)(p[j - 1] >> 32));
+  A[NL] = addc(A[NL], (uint32_t)(p[NL - 1] >> 32));
+}
+
+// One reduction step: A += m p with m = A[0] (-p^-1) mod 2^32, which clears
+// A[0], then A shifts down one limb.  The caller keeps A + m p below 2^288
+// (it is for any A < 2^288 - p 2^32).
+__device__ __forceinline__ void redc_step(uint32_t A[NL + 1]) {
+  row(A, BN_P, A[0] * BN_NP0);
+#pragma unroll
+  for (int j = 0; j < NL; ++j) A[j] = A[j + 1];
+  A[NL] = 0;
+}
+
+// r = a b / R mod p, lazily: r < a b / R + p, for a < 4p and any 256-bit b
+// (r may alias a or b).  Between steps A < a + p + 1 < 5p < 2^256 (p < R /
+// 5.29), within one A + a b_i + m p < 5p 2^32 < 2^288.
+__device__ __forceinline__ void mont_mul(const uint32_t* a, const uint32_t* b,
+                                         uint32_t r[NL]) {
+  uint32_t A[NL + 1];
+#pragma unroll
+  for (int j = 0; j <= NL; ++j) A[j] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    row(A, a, b[i]);
+    redc_step(A);
   }
+#pragma unroll
+  for (int j = 0; j < NL; ++j) r[j] = A[j];
 }
 
-// t[0..7] = a * b (schoolbook, 512 bits).
-__device__ __forceinline__ void mul_wide(const uint64_t a[4],
-                                         const uint64_t b[4], uint64_t t[8]) {
+// r = sum_j c_j x_j / R mod p over j < 4 with one reduction, lazily:
+// r < sum_j c_j x_j / R + p.  c_j = c[j * NL ..] must be canonical (< p) and
+// x_j may be any 256-bit values: the four rows of a step add below
+// 4p 2^32, so A stays below 5p between steps and below 2^288 within one.
+__device__ __forceinline__ void dot4(const uint32_t* c,
+                                     const uint32_t x[WIDTH][NL],
+                                     uint32_t r[NL]) {
+  uint32_t A[NL + 1];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) t[k] = 0;
+  for (int j = 0; j <= NL; ++j) A[j] = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint64_t c = 0;
+  for (int i = 0; i < NL; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) mac(t[i + j], a[j], b[i], c, t[i + j]);
-    t[i + 4] = c;
-  }
-}
-
-// acc[0..7] += t[0..7]; the caller keeps the sum below 2^512.
-__device__ __forceinline__ void add_wide(uint64_t acc[8], const uint64_t t[8]) {
-  uint64_t c = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const uint64_t s = acc[k] + t[k];
-    const uint64_t c1 = s < acc[k];
-    acc[k] = s + c;
-    c = c1 | (acc[k] < c);
-  }
-}
-
-// r = t / R mod p, canonical, for t < R * p.  Each step clears the lowest
-// remaining word: t += m * p * 2^(64 i) with m = t[i] * (-p^-1) mod 2^64.
-// t + sum m_i p 2^(64 i) < 2 R p < 2^512, so no carry leaves t[7], and the
-// top half is < 2p.
-__device__ __forceinline__ void redc(uint64_t t[8], uint64_t r[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint64_t m = t[i] * BN_NP0;
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) mac(t[i + j], m, BN_P[j], c, t[i + j]);
-#pragma unroll
-    for (int k = i + 4; k < 8; ++k) {
-      t[k] += c;
-      c = t[k] < c;
-    }
+    for (int j = 0; j < WIDTH; ++j) row(A, c + j * NL, x[j][i]);
+    redc_step(A);
   }
 #pragma unroll
-  for (int j = 0; j < 4; ++j) r[j] = t[4 + j];
-  cond_sub_p(r);
+  for (int j = 0; j < NL; ++j) r[j] = A[j];
 }
 
-// r = a * b / R mod p for a * b < R * p (r may alias a or b).
-__device__ __forceinline__ void mont_mul(const uint64_t a[4],
-                                         const uint64_t b[4], uint64_t r[4]) {
-  uint64_t t[8];
-  mul_wide(a, b, t);
-  redc(t, r);
-}
-
-// x <- x * R mod p, for any 256-bit x (x * R2 < R * p).
-__device__ __forceinline__ void to_mont(uint64_t x[4]) {
-  uint64_t r2[4];
+// x <- x + y; the caller keeps the sum below 2^256.
+__device__ __forceinline__ void add(uint32_t x[NL], const uint32_t* y) {
+  x[0] = add_cc(x[0], y[0]);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) r2[j] = BN_R2[j];
-  mont_mul(x, r2, x);
+  for (int j = 1; j < NL - 1; ++j) x[j] = addc_cc(x[j], y[j]);
+  x[NL - 1] = addc(x[NL - 1], y[NL - 1]);
 }
 
-// x <- x / R mod p.
-__device__ __forceinline__ void from_mont(uint64_t x[4]) {
-  uint64_t t[8];
+// x <- x - k if x >= k (k is BN_P or BN_2P): x < 2k becomes x < k, and
+// x < 3k becomes x < 2k.
+__device__ __forceinline__ void reduce(uint32_t x[NL], const uint32_t* k) {
+  uint32_t d[NL];
+  d[0] = sub_cc(x[0], k[0]);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    t[j] = x[j];
-    t[4 + j] = 0;
-  }
-  redc(t, x);
-}
-
-// x <- (x + c) mod p for canonical x and c (the sum is < 2p < 2^255).
-__device__ __forceinline__ void add_mod(uint64_t x[4], const uint64_t* c) {
-  uint64_t carry = 0;
+  for (int j = 1; j < NL; ++j) d[j] = subc_cc(x[j], k[j]);
+  const uint32_t borrow = subc(0, 0);       // all ones if x < k
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint64_t s = x[j] + c[j];
-    const uint64_t c1 = s < x[j];
-    x[j] = s + carry;
-    carry = c1 | (x[j] < carry);
-  }
-  cond_sub_p(x);
+  for (int j = 0; j < NL; ++j) x[j] = borrow ? x[j] : d[j];
 }
 
-__device__ __forceinline__ void sbox5(uint64_t x[4]) {
-  uint64_t x2[4], x4[4];
+// x <- x * R mod p for any 256-bit x: x R^2 / R < p, so x < 2p out.
+__device__ __forceinline__ void to_mont(uint32_t x[NL]) {
+  mont_mul(BN_R2, x, x);
+}
+
+// x <- x / R mod p, canonical, for any 256-bit x: the reduction steps alone
+// give (x + m p) / R <= p, and one subtraction makes that canonical.
+__device__ __forceinline__ void from_mont(uint32_t x[NL]) {
+  uint32_t A[NL + 1];
+#pragma unroll
+  for (int j = 0; j < NL; ++j) A[j] = x[j];
+  A[NL] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) redc_step(A);
+#pragma unroll
+  for (int j = 0; j < NL; ++j) x[j] = A[j];
+  reduce(x, BN_P);
+}
+
+// x <- x^5 for x < 2p: x^2 < 1.76p, x^4 < 1.59p, x^5 < 1.61p.
+__device__ __forceinline__ void sbox(uint32_t x[NL]) {
+  uint32_t x2[NL], x4[NL];
   mont_mul(x, x, x2);
   mont_mul(x2, x2, x4);
   mont_mul(x4, x, x);
 }
 
-// s[f] <- sum_e MDS[f][e] * s[e] / R, one REDC per row.
-__device__ __forceinline__ void mds(uint64_t s[4][4]) {
-  uint64_t out[4][4];
+// x <- x + c, then below 2p again: x < 2p, c < p.
+__device__ __forceinline__ void add_const(uint32_t x[NL], const uint32_t* c) {
+  add(x, c);
+  reduce(x, BN_P);
+}
+
+// u64 words <-> limbs: word k of an Fr value at p[k * stride].
+__device__ __forceinline__ void load(const uint64_t* p, int64_t stride,
+                                     uint32_t x[NL]) {
 #pragma unroll
-  for (int f = 0; f < 4; ++f) {
-    uint64_t acc[8], t[8];
-    mul_wide(&BN_MDS[(f * 4 + 0) * 4], s[0], acc);
+  for (int k = 0; k < NL / 2; ++k) {
+    const uint64_t w = p[k * stride];
+    x[2 * k] = (uint32_t)w;
+    x[2 * k + 1] = (uint32_t)(w >> 32);
+  }
+}
+
+__device__ __forceinline__ void store(uint64_t* p, int64_t stride,
+                                      const uint32_t x[NL]) {
 #pragma unroll
-    for (int e = 1; e < 4; ++e) {
-      mul_wide(&BN_MDS[(f * 4 + e) * 4], s[e], t);
-      add_wide(acc, t);
+  for (int k = 0; k < NL / 2; ++k)
+    p[k * stride] = (uint64_t)x[2 * k] | ((uint64_t)x[2 * k + 1] << 32);
+}
+
+// ---------------------------------------------------------------------------
+// The permutation, one thread per state (K4, K5, K9)
+// ---------------------------------------------------------------------------
+
+// Full round r of FULL: pre-S-box and post-S-box constants (zero where the
+// schedule has none), S-boxes, the dense mix of round r.  Elements < 2p in;
+// the mix gives < 2p (p + 4 2p p / R) < 2.52p, one subtraction < 1.52p.
+__device__ __forceinline__ void full_round(uint32_t s[WIDTH][NL], int r) {
+#pragma unroll
+  for (int e = 0; e < WIDTH; ++e) {
+    add_const(s[e], &BN_OPT_PRE[(r * WIDTH + e) * NL]);
+    sbox(s[e]);
+    add_const(s[e], &BN_OPT_POST[(r * WIDTH + e) * NL]);
+  }
+  uint32_t out[WIDTH][NL];
+#pragma unroll
+  for (int f = 0; f < WIDTH; ++f) {
+    dot4(&BN_OPT_MIX[(r * WIDTH + f) * WIDTH * NL], s, out[f]);
+    reduce(out[f], BN_P);
+  }
+#pragma unroll
+  for (int e = 0; e < WIDTH; ++e) {
+#pragma unroll
+    for (int j = 0; j < NL; ++j) s[e][j] = out[e][j];
+  }
+}
+
+// Partial round i: s0 <- s0^5 + gamma_i (< 2p), then the sparse mix:
+// new0 = row0 . s (< 2.52p, one subtraction: < 1.52p) and
+// s_k += col0_k s0 (< 2p + 1.38p, one subtraction of 2p: < 2p).
+__device__ __forceinline__ void partial_round(uint32_t s[WIDTH][NL], int i) {
+  sbox(s[0]);
+  add_const(s[0], &BN_OPT_GAMMA[i * NL]);
+  uint32_t n0[NL];
+  dot4(&BN_OPT_ROW0[i * WIDTH * NL], s, n0);
+  reduce(n0, BN_P);
+#pragma unroll
+  for (int k = 1; k < WIDTH; ++k) {
+    uint32_t t[NL];
+    mont_mul(&BN_OPT_COL0[(i * (WIDTH - 1) + k - 1) * NL], s[0], t);
+    add(s[k], t);
+    reduce(s[k], BN_2P);
+  }
+#pragma unroll
+  for (int j = 0; j < NL; ++j) s[0][j] = n0[j];
+}
+
+// The permutation of one state in place: elements < 2p in and out.  One
+// loop over all rounds, so each round's code exists once.
+__device__ __forceinline__ void permute(uint32_t s[WIDTH][NL]) {
+  constexpr int H = BN_HALF_FULL_ROUNDS;
+#pragma unroll 1
+  for (int r = 0; r < ROUNDS; ++r) {
+    if (r < H || r >= H + BN_PARTIAL_ROUNDS)
+      full_round(s, r < H ? r : r - BN_PARTIAL_ROUNDS);
+    else
+      partial_round(s, r - H);
+  }
+}
+
+// Every element < 2p -> canonical.
+__device__ __forceinline__ void canonical(uint32_t s[WIDTH][NL]) {
+#pragma unroll
+  for (int e = 0; e < WIDTH; ++e) reduce(s[e], BN_P);
+}
+
+// ---------------------------------------------------------------------------
+// The permutation over four lanes of a warp (K6)
+// ---------------------------------------------------------------------------
+
+// The schedule's tables, copied to shared memory by K6: there each lane of
+// a group reads the entry of its own element, four addresses a warp.
+struct OptTables {
+  uint32_t pre[sizeof(BN_OPT_PRE) / 4];
+  uint32_t post[sizeof(BN_OPT_POST) / 4];
+  uint32_t mix[sizeof(BN_OPT_MIX) / 4];
+  uint32_t gamma[sizeof(BN_OPT_GAMMA) / 4];
+  uint32_t row0[sizeof(BN_OPT_ROW0) / 4];
+  uint32_t col0[sizeof(BN_OPT_COL0) / 4];
+};
+
+// Copy the tables into `t` with the `count` threads of a block (the caller
+// synchronises afterwards).
+__device__ __forceinline__ void copy_tables(OptTables& t, int tid,
+                                            int count) {
+  const uint32_t* src[] = {BN_OPT_PRE, BN_OPT_POST, BN_OPT_MIX,
+                           BN_OPT_GAMMA, BN_OPT_ROW0, BN_OPT_COL0};
+  uint32_t* dst[] = {t.pre, t.post, t.mix, t.gamma, t.row0, t.col0};
+  const int size[] = {sizeof(t.pre) / 4, sizeof(t.post) / 4,
+                      sizeof(t.mix) / 4, sizeof(t.gamma) / 4,
+                      sizeof(t.row0) / 4, sizeof(t.col0) / 4};
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    for (int q = tid; q < size[a]; q += count) dst[a][q] = src[a][q];
+  }
+}
+
+__device__ __forceinline__ void shfl(uint32_t y[NL], const uint32_t x[NL],
+                                     int src) {
+#pragma unroll
+  for (int j = 0; j < NL; ++j) y[j] = __shfl_sync(0xffffffffu, x[j], src);
+}
+
+// The permutation of one state held by the four lanes base .. base + 3 of a
+// warp, lane base + e holding element e (< 2p in and out).  All 32 lanes of
+// the warp call it together and every lane runs every instruction; a lane
+// keeps what its element needs and drops the rest.
+//   Full round: each lane adds, S-boxes and mixes its own element (row e of
+//   the matrix), after gathering the four elements with shuffles.
+//   Partial round: lane 0 squares s0 while lane k computes u_k = row0_k s_k;
+//   lane 0 finishes y0 = s0^5 + gamma and shares it; lane 0 computes
+//   row0_0 y0 and lane k col0_k y0 (one product each); the group sums
+//   new0 = row0_0 y0 + u_1 + u_2 + u_3 with two xor shuffles, and lane k
+//   adds col0_k y0 to s_k.  The chain is four products a round where one
+//   thread needs three, a dot of four and three.
+__device__ __forceinline__ void permute_group4(uint32_t x[NL], int e,
+                                               int base,
+                                               const OptTables& t) {
+  constexpr int H = BN_HALF_FULL_ROUNDS;
+#pragma unroll 1
+  for (int r = 0; r < ROUNDS; ++r) {
+    if (r < H || r >= H + BN_PARTIAL_ROUNDS) {
+      const int f = r < H ? r : r - BN_PARTIAL_ROUNDS;
+      add_const(x, &t.pre[(f * WIDTH + e) * NL]);
+      sbox(x);
+      add_const(x, &t.post[(f * WIDTH + e) * NL]);
+      uint32_t s[WIDTH][NL];
+#pragma unroll
+      for (int j = 0; j < WIDTH; ++j) shfl(s[j], x, base + j);
+      dot4(&t.mix[(f * WIDTH + e) * WIDTH * NL], s, x);
+      reduce(x, BN_P);                          // < 2.52p -> < 1.52p
+    } else {
+      const int i = r - H;
+      const uint32_t* c = &t.row0[(i * WIDTH + e) * NL];
+      uint32_t a[NL], u[NL], y[NL], v[NL], z[NL], o[NL];
+#pragma unroll
+      for (int j = 0; j < NL; ++j) a[j] = e ? c[j] : x[j];
+      mont_mul(a, x, u);                        // lane 0: s0^2; k: row0_k s_k
+      mont_mul(u, u, y);                        // lane 0: s0^4
+      mont_mul(y, x, y);                        // lane 0: s0^5
+      add_const(y, &t.gamma[i * NL]);           // lane 0: y0 < 2p
+      shfl(y, y, base);
+      c = e ? &t.col0[(i * (WIDTH - 1) + e - 1) * NL] : &t.row0[i * WIDTH * NL];
+      mont_mul(c, y, v);                        // < 1.38p
+#pragma unroll
+      for (int j = 0; j < NL; ++j) z[j] = e ? u[j] : v[j];
+#pragma unroll
+      for (int d = 1; d < WIDTH; d <<= 1) {     // < 2.76p, then < 4p
+#pragma unroll
+        for (int j = 0; j < NL; ++j)
+          o[j] = __shfl_xor_sync(0xffffffffu, z[j], d);
+        add(z, o);
+        reduce(z, BN_2P);                       // < 2p
+      }
+      add(x, v);
+      reduce(x, BN_2P);                         // lane k: < 3.38p -> < 2p
+#pragma unroll
+      for (int j = 0; j < NL; ++j) x[j] = e ? x[j] : z[j];
     }
-    redc(acc, out[f]);
   }
-#pragma unroll
-  for (int f = 0; f < 4; ++f) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[f][j] = out[f][j];
-  }
-}
-
-__device__ __forceinline__ void full_round(uint64_t s[4][4], int r) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    add_mod(s[e], &BN_RC[(r * 4 + e) * 4]);
-    sbox5(s[e]);
-  }
-  mds(s);
-}
-
-__device__ __forceinline__ void partial_round(uint64_t s[4][4], int r) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) add_mod(s[e], &BN_RC[(r * 4 + e) * 4]);
-  sbox5(s[0]);
-  mds(s);
-}
-
-// The permutation of one canonical Montgomery state, in place.
-__device__ __forceinline__ void poseidon_bn254_permute(uint64_t s[4][4]) {
-  constexpr int r0 = BN_HALF_FULL_ROUNDS;
-  constexpr int r1 = BN_HALF_FULL_ROUNDS + BN_PARTIAL_ROUNDS;
-#pragma unroll 1
-  for (int r = 0; r < r0; ++r) full_round(s, r);
-#pragma unroll 1
-  for (int r = r0; r < r1; ++r) partial_round(s, r);
-#pragma unroll 1
-  for (int r = r1; r < r1 + r0; ++r) full_round(s, r);
 }
 
 }  // namespace bn

@@ -136,8 +136,9 @@ def two_to_one_planes(left, right):
 # Batch-last sponge and hashing (plonky2 semantics)
 # ----------------------------------------------------------------------------
 
-def zero_state(shape=(), device="cpu"):
-    """The all-zero (*shape, 12) int64 sponge state."""
+def zero_state(shape=(), device="cuda"):
+    """The all-zero (*shape, 12) int64 sponge state, on the card unless the
+    caller asks for another device (device="cpu" runs the plain path)."""
     return torch.zeros(tuple(shape) + (W,), dtype=torch.int64, device=device)
 
 

@@ -10,12 +10,20 @@ held against (`ops/bn254_kernels.py`).
 A state is (..., 4, 4) int64: four Fr elements of four u64 words each.  The
 MDS mix adds the raw product columns of each row and reduces once per row
 (4 p^2 < R p), which keeps the plain permutation affordable on the CPU.
+
+`permute_mont_limbs_opt` computes the same permutation by the optimized
+schedule (`constants/poseidon_bn254_opt.py`) that the kernels' body
+(`csrc/poseidon_bn254.cuh`) runs, from the same tables: the CPU check of
+that schedule and its constants.  The plain versions of the kernels call the
+naive `permute_mont_limbs`, so the card's comparison does not rest on the
+optimized schedule.
 """
 
 import functools
 
 import torch
 
+from ..constants import poseidon_bn254_opt as pbo
 from ..constants.poseidon_bn254 import (FULL_ROUNDS, PARTIAL_ROUNDS, RATE,
                                         WIDTH, generate)
 from . import bn254 as fr
@@ -75,6 +83,57 @@ def permute_mont_limbs(state):
     """(..., 4, 16) canonical Montgomery limbs -> the permuted state."""
     for r in range(ROUNDS):
         state = round_mont_limbs(state, r)
+    return state
+
+
+@functools.lru_cache(maxsize=None)
+def _opt_mont_tables():
+    """`constants/poseidon_bn254_opt.py:round_tables` in Montgomery form, as
+    tuples of host ints (hashable, so each matrix is a cached constant of
+    `fr.mont_matvec_limbs`)."""
+    def mont(v):
+        return (tuple(mont(x) for x in v) if isinstance(v, (list, tuple))
+                else v * fr.R % fr.P)
+    return {k: mont(v) for k, v in pbo.round_tables().items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _opt_limbs(key, device):
+    """(n, ..., 16) limbs of table `key` of `_opt_mont_tables`."""
+    return fr.to_limbs(fr.from_ints(_opt_mont_tables()[key], device))
+
+
+def _full_round_opt(state, r):
+    t = _opt_mont_tables()
+    state = fr.add_mod_limbs(state, _opt_limbs("pre", state.device)[r])
+    state = _sbox5(state)
+    state = fr.add_mod_limbs(state, _opt_limbs("post", state.device)[r])
+    return fr.mont_matvec_limbs(t["mix"][r], state)
+
+
+def _partial_round_opt(state, i):
+    """S-box and scalar constant on element 0, then the sparse mix:
+    new0 = row0 . s, new_k = s_k + col0[k-1] s0."""
+    t = _opt_mont_tables()
+    s0 = fr.add_mod_limbs(_sbox5(state[..., :1, :]),
+                          _opt_limbs("gamma", state.device)[i])
+    new0 = fr.mont_matvec_limbs((t["row0"][i],),
+                                torch.cat([s0, state[..., 1:, :]], dim=-2))
+    rest = fr.add_mod_limbs(state[..., 1:, :], fr.mont_matvec_limbs(
+        tuple((c,) for c in t["col0"][i]), s0))
+    return torch.cat([new0, rest], dim=-2)
+
+
+def permute_mont_limbs_opt(state):
+    """(..., 4, 16) canonical Montgomery limbs -> the permuted state, by the
+    optimized schedule: HALF full rounds, PARTIAL_ROUNDS partial rounds,
+    HALF full rounds.  Equal to `permute_mont_limbs`."""
+    for r in range(HALF):
+        state = _full_round_opt(state, r)
+    for i in range(PARTIAL_ROUNDS):
+        state = _partial_round_opt(state, i)
+    for r in range(HALF, FULL_ROUNDS):
+        state = _full_round_opt(state, r)
     return state
 
 

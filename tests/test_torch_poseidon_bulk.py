@@ -12,6 +12,7 @@ integer (the f32 probe's values are integers below 2^17), so the tolerance is
 exact equality.
 """
 
+import inspect
 import math
 import os
 import sys
@@ -108,9 +109,16 @@ def test_hash_or_noop_vs_refimpl(k):
 
 
 def test_zero_state():
-    z = tpos.zero_state((2, 3))
+    z = tpos.zero_state((2, 3), device="cpu")
     assert z.shape == (2, 3, 12) and z.dtype == torch.int64
     assert not z.any()
+
+
+def test_zero_state_defaults_to_the_card():
+    """The bulk API's constructor puts the state on the card unless the
+    caller asks for the CPU, so absorb(zero_state(shape), x) reaches K7."""
+    default = inspect.signature(tpos.zero_state).parameters["device"].default
+    assert torch.device(default).type == "cuda"
 
 
 # ----------------------------------------------------------------------------
