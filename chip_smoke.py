@@ -5,7 +5,8 @@ Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
 
   1. device: the card's name and power limit;
   2. build: nvcc for every kernel of the port, all at once;
-  3. kernels: K1 (Merkle paths), K2 (transcript), K3 (leaf sponge), K4
+  3. kernels: K1 (Merkle paths), K2 (transcript, B = 1024 and 4096, also
+     compared at a ragged B = 1023 and at B = 2048), K3 (leaf sponge), K4
      (BN254 Merkle paths), K5 (BN254 leaf hash, w = 4, 2, 32), K6 (the
      BN254 permutation), K7 (the bulk Goldilocks permutation, 2^21 states),
      K8 (64 chained Goldilocks permutations on 2^18 states) and K9 (the
@@ -21,8 +22,10 @@ Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
      shape.  K4's and K6's inputs include carry-stressing values (0, 1,
      p - 1, p - 2, words of all ones; for K4's siblings also values >= p) on
      compared lanes, and K6 is also compared on every lane at N = 4097 (a
-     partial last group) and N = 1024.  K9's whole-permutation probe is
-     compared at a chain of 2 and timed at the full chain;
+     partial last group) and N = 1024.  K1's and K2's first lanes hold the
+     Goldilocks edge values (0, 1, p - 1, p - 2 and u64 values >= p).
+     K9's whole-permutation probe is compared at a chain of 2 and timed at
+     the full chain;
   4. the drives, each with every kernel's launch count set to 0 just before
      it and read just after; every kernel of the drive must have launched:
      a. through `build_verifier` on a tiled fixture: every verdict must be
@@ -185,6 +188,39 @@ def path_inputs(rng, depths, m, node_words, sib_words):
     return node, sib, idx, active
 
 
+# Goldilocks words that stress the reductions: 0, 1, p - 1, p - 2, and the
+# u64 values >= p that a tampered proof can carry.
+EDGE_GL = (0, 1, gl.P - 1, gl.P - 2, gl.P, gl.P + 1, (1 << 64) - 1, 1 << 63)
+
+# (fixture, (num_rows, degree_bits)) whose transcript schedule K2 runs
+TRANSCRIPT_N11 = ("fib_stark_n2048_x8.npz", (2048, 11))
+TRANSCRIPT_N5 = ("fib_stark_n32_x32.npz", (32, 5))
+
+
+def with_gl_edges(planes, shift=0):
+    """Set the first len(EDGE_GL) lanes of (rows, N) int64 planes, in place,
+    to the edge values, rotated by the row (plus `shift`)."""
+    rows, k = planes.shape[0], min(len(EDGE_GL), planes.shape[1])
+    vals = [[EDGE_GL[(r + j + shift) % len(EDGE_GL)] for j in range(k)]
+            for r in range(rows)]
+    planes[:, :k] = gl.from_u64(vals, planes.device)
+
+
+def transcript_inputs(rng, fixture, b):
+    """K2 inputs for the verifier's transcript schedule of `fixture`'s
+    proofs: seeded chunks (n_steps, 8, b), the first lanes of every step
+    made of the edge values, and the schedule's mask (n_steps, 8)."""
+    name, (num_rows, degree_bits) = fixture
+    shape = fibonacci_shape(num_rows, degree_bits)[2]
+    one = witness.load_batch_npz(os.path.join(FIXTURES, name), shape, "cpu")
+    sched, _, _ = stark.challenge_stream(one)
+    _, mask = transcript.schedule_tables(sched, DEVICE)
+    chunks = gl.from_u64(rand_gl(rng, (len(sched.steps), 8, b)), DEVICE)
+    for s_ in range(chunks.shape[0]):
+        with_gl_edges(chunks[s_], shift=s_)
+    return chunks, mask
+
+
 def sample_lanes(n, groups, per_group):
     """`per_group` evenly spaced lanes of each of `groups` equal slots."""
     m = n // groups
@@ -203,12 +239,16 @@ def check_kernels(rng, B=1024, Q=84):
     # K -> list of (kernel fn, plain fn, what), compared on every lane only
     checks = {}
 
-    # K1: the n=2^11 slots (3 oracles of depth 8, step trees of depth 4, 0)
+    # K1: the n=2^11 slots (3 oracles of depth 8, step trees of depth 4, 0),
+    # the first lanes' node and siblings made of the edge values
     depths = (8, 8, 8, 4, 0)
     node, sib, idx, active = path_inputs(
         rng, depths, m, lambda n: rand_gl(rng, (n, 4)),
         lambda d, n: rand_gl(rng, (d, n, 4)))
     n, d_max = node.shape[1], sib.shape[0]
+    with_gl_edges(node)
+    for level in range(d_max):
+        with_gl_edges(sib[level], shift=level + 1)
     args = (node, sib, idx, active)
     cases["K1"] = [(lambda: mk.verify_paths_planes(*args),
                     lambda: mk.verify_paths_planes_plain(*args), None,
@@ -216,19 +256,27 @@ def check_kernels(rng, B=1024, Q=84):
                     bound(n * (32 + 8 + 32) + d_max * n * (32 + 4),
                           int(active.sum()) * GL_PERM_MULS), None)]
 
-    # K2: the transcript schedule of the n=2^11 proofs, B=1024
-    shape = fibonacci_shape(2048, 11)[2]
-    one = witness.load_batch_npz(
-        os.path.join(FIXTURES, "fib_stark_n2048_x8.npz"), shape, "cpu")
-    sched, _, _ = stark.challenge_stream(one)
-    _, mask = transcript.schedule_tables(sched, DEVICE)
-    n_steps = len(sched.steps)
-    chunks = gl.from_u64(rand_gl(rng, (n_steps, 8, B)), DEVICE)
-    cases["K2"] = [(lambda: tk.run_steps_planes(chunks, mask),
-                    lambda: tk.run_steps_planes_plain(chunks, mask), None,
-                    f"n_steps={n_steps} B={B}",
-                    bound(2 * chunks.numel() * 8 + mask.numel() * 4,
-                          n_steps * B * GL_PERM_MULS), None)]
+    # K2: the transcript schedules of the n=2^11 proofs at B=1024 and of the
+    # flagship n=2^5 proofs at B=4096, both timed; also compared (not timed)
+    # at a ragged B=1023 and at B=2048 of the n=2^11 schedule.  The chunks'
+    # first lanes are made of the edge values; every lane is compared.
+    cases["K2"] = []
+    for fixture, b_ in ((TRANSCRIPT_N11, B), (TRANSCRIPT_N5, 4 * B)):
+        chunks, mask = transcript_inputs(rng, fixture, b_)
+        n_steps = chunks.shape[0]
+        cases["K2"].append((
+            (lambda c=chunks, k=mask: tk.run_steps_planes(c, k)),
+            (lambda c=chunks, k=mask: tk.run_steps_planes_plain(c, k)), None,
+            f"n_steps={n_steps} B={b_}",
+            bound(2 * chunks.numel() * 8 + mask.numel() * 4,
+                  n_steps * b_ * GL_PERM_MULS), None))
+    # (B=1023 runs a ragged last group of 16 lanes; B=2048 the 4-lane form)
+    checks["K2"] = [
+        ((lambda c=c, k=k: tk.run_steps_planes(c, k)),
+         (lambda c=c, k=k: tk.run_steps_planes_plain(c, k)),
+         f"n_steps={c.shape[0]} B={c.shape[2]}")
+        for c, k in (transcript_inputs(rng, TRANSCRIPT_N11, b_)
+                     for b_ in (B - 1, 2 * B))]
 
     # K3: the two step-leaf slots of the n=2^11 proofs, w=32
     leaves = gl.from_u64(rand_gl(rng, (32, 2 * m)), DEVICE)

@@ -4,13 +4,13 @@ Each `csrc/*.cu` source is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface and loaded with `ctypes`.  The build runs at
 first use, never at import, from the sources in this checkout only, into
 `build/torch_kernels/` at the repository root.  The Poseidon constants
-headers (Goldilocks, BN254, and the BN254 optimized schedule) are generated
-there from the port's copies of the constants.  A library's file name
-carries a digest of everything it was built from (its source, the text of
-every header in csrc/ and of every generated one, and the flags), so a
-changed source, header or constant is rebuilt and an unchanged one is loaded
-as it is.  A header change rebuilds every library, which costs one parallel
-build.
+headers (Goldilocks with its fast partial layer, BN254, and the BN254
+optimized schedule) are generated there from the port's copies of the
+constants.  A library's file name carries a digest of everything it was
+built from (its source, the text of every header in csrc/ and of every
+generated one, and the flags), so a changed source, header or constant is
+rebuilt and an unchanged one is loaded as it is.  A header change rebuilds
+every library, which costs one parallel build.
 
 All sources are compiled at once, one `nvcc` process each.
 """
@@ -26,6 +26,7 @@ from pathlib import Path
 from ..constants import poseidon_bn254 as pbc
 from ..constants import poseidon_bn254_opt as pbo
 from ..constants import poseidon_goldilocks as pc
+from ..constants import poseidon_goldilocks_opt as pgo
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -60,22 +61,55 @@ _loaded = {}        # kernel name -> ctypes function
 build_log = {}      # kernel name -> nvcc/ptxas output of the last build
 
 
+def _u64_array(name, values, per_line=4):
+    """`__constant__ uint64_t name[len(values)]`, hex, `per_line` a line."""
+    rows = ",\n    ".join(
+        ", ".join(f"0x{v:016x}ull" for v in values[i:i + per_line])
+        for i in range(0, len(values), per_line))
+    return f"__constant__ uint64_t {name}[{len(values)}] = {{\n    {rows}}};\n"
+
+
+def gl_opt_rows():
+    """The fast partial layer's tables as the kernels index them, twelve
+    entries a row: GL_FIRST [element]; GL_PARTIAL [round]; GL_INIT
+    [row][column], the entry matrix bordered by row and column 0 of the
+    identity; GL_W_HAT and GL_V [round][element], entry 0 zero (element 0
+    takes M00 y in row 0 and no column update)."""
+    t = pgo.opt_tables()
+    w = pc.SPONGE_WIDTH
+    init = [[int(c == 0) for c in range(w)]] + [[0] + row for row in t["init"]]
+    return {"GL_FIRST": t["first"], "GL_PARTIAL": t["partial"],
+            "GL_INIT": _flat(init),
+            "GL_W_HAT": _flat([[0] + row for row in t["w_hat"]]),
+            "GL_V": _flat([[0] + row for row in t["v"]])}
+
+
 def gl_constants_header():
-    """Text of poseidon_gl_constants.h, from the port's constants."""
-    rc = ",\n    ".join(
-        ", ".join(f"0x{c:016x}ull" for c in pc.ALL_ROUND_CONSTANTS[i:i + 4])
-        for i in range(0, len(pc.ALL_ROUND_CONSTANTS), 4))
-    circ = ", ".join(f"{c}ull" for c in pc.MDS_MATRIX_CIRC)
+    """Text of poseidon_gl_constants.h, from the port's constants: the
+    round counts; the MDS circulant, DIAG[0] and M00 as compile-time
+    constants (`constexpr` scalars and the `constexpr` function
+    gl_mds_circ, so a product by one is a small multiply-add the compiler
+    sees); the naive schedule's round constants GL_RC; and the fast partial
+    layer's tables (`gl_opt_rows`), in __constant__ memory."""
+    w = pc.SPONGE_WIDTH
     assert all(d == 0 for d in pc.MDS_MATRIX_DIAG[1:])
+    circ = "".join(f"constexpr uint32_t GL_MDS_CIRC_{i} = {c}u;\n"
+                   for i, c in enumerate(pc.MDS_MATRIX_CIRC))
+    select = " : ".join(f"i == {i} ? GL_MDS_CIRC_{i}" for i in range(w - 1))
     return (
-        "// Generated by ops/_build.py from constants/poseidon_goldilocks.py.\n"
+        "// Generated by ops/_build.py from constants/poseidon_goldilocks.py"
+        " and\n// constants/poseidon_goldilocks_opt.py.\n"
         "#pragma once\n#include <cstdint>\n"
         f"constexpr int GL_HALF_N_FULL_ROUNDS = {pc.HALF_N_FULL_ROUNDS};\n"
         f"constexpr int GL_N_PARTIAL_ROUNDS = {pc.N_PARTIAL_ROUNDS};\n"
-        f"constexpr uint64_t GL_MDS_DIAG0 = {pc.MDS_MATRIX_DIAG[0]}ull;\n"
-        f"__constant__ uint64_t GL_MDS_CIRC[{pc.SPONGE_WIDTH}] = {{{circ}}};\n"
-        f"__constant__ uint64_t GL_RC[{len(pc.ALL_ROUND_CONSTANTS)}] = {{\n"
-        f"    {rc}}};\n")
+        + circ +
+        f"constexpr uint32_t GL_MDS_DIAG0 = {pc.MDS_MATRIX_DIAG[0]}u;\n"
+        f"constexpr uint32_t GL_MDS_M00 = {pgo.opt_tables()['m00']}u;\n"
+        "__host__ __device__ constexpr uint32_t gl_mds_circ(int i) {\n"
+        f"  return {select} : GL_MDS_CIRC_{w - 1};\n}}\n"
+        + _u64_array("GL_RC", pc.ALL_ROUND_CONSTANTS)
+        + "".join(_u64_array(name, vals)
+                  for name, vals in gl_opt_rows().items()))
 
 
 def _limb_array(name, values):

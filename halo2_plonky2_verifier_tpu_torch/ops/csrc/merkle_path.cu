@@ -15,17 +15,24 @@
 // them per lane); the memory traffic is 32 B of sibling per level per lane.
 // Lanes are the fastest axis of every array, so a warp's loads of one sibling
 // element are coalesced, and the node stays in registers across all levels.
+// The permutation is the one-thread K0 (poseidon_gl.cuh), whose rate follows
+// the warps an SM holds; the launch bounds (threads a block, minimum blocks
+// an SM, which caps the registers) and the unrolling of the partial rounds
+// are the fastest setting without spills of tools/torch_gl_tune.py's sweep.
 
 #include <cuda_runtime.h>
 
 #include "poseidon_gl.cuh"
 
-__global__ void merkle_path_kernel(const uint64_t* __restrict__ node,
-                                   const uint64_t* __restrict__ sib,
-                                   const int64_t* __restrict__ idx,
-                                   const int32_t* __restrict__ active,
-                                   uint64_t* __restrict__ out, int64_t n,
-                                   int d_max) {
+constexpr int PATH_THREADS = 512;
+constexpr int PATH_PARTIAL_UNROLL = 22;
+
+__global__ void __launch_bounds__(PATH_THREADS, 1)
+    merkle_path_kernel(const uint64_t* __restrict__ node,
+                       const uint64_t* __restrict__ sib,
+                       const int64_t* __restrict__ idx,
+                       const int32_t* __restrict__ active,
+                       uint64_t* __restrict__ out, int64_t n, int d_max) {
   const int64_t lane = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (lane >= n) return;
   uint64_t h[4];
@@ -43,7 +50,7 @@ __global__ void merkle_path_kernel(const uint64_t* __restrict__ node,
         st[4 + k] = right ? h[k] : s;
         st[8 + k] = 0;
       }
-      gl::poseidon_gl_permute(st);
+      gl::poseidon_gl_permute<PATH_PARTIAL_UNROLL>(st);
 #pragma unroll
       for (int k = 0; k < 4; ++k) h[k] = st[k];
     }
@@ -58,9 +65,8 @@ extern "C" int launch_merkle_path(const void* node, const void* sib,
                                   void* out, long long n, int d_max,
                                   void* stream) {
   if (n > 0) {
-    const int threads = 128;
-    const long long blocks = (n + threads - 1) / threads;
-    merkle_path_kernel<<<(unsigned)blocks, threads, 0,
+    const long long blocks = (n + PATH_THREADS - 1) / PATH_THREADS;
+    merkle_path_kernel<<<(unsigned)blocks, PATH_THREADS, 0,
                          (cudaStream_t)stream>>>(
         (const uint64_t*)node, (const uint64_t*)sib, (const int64_t*)idx,
         (const int32_t*)active, (uint64_t*)out, (int64_t)n, d_max);

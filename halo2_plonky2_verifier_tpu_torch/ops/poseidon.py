@@ -20,7 +20,10 @@ states out as contiguous (12, N) planes for K7 and back.
 Round structure: constant layer -> S-box x^7 (all 12 elements in the 4 + 4
 full rounds, element 0 in the 22 partial rounds) -> circulant MDS plus
 DIAG[0].  The MDS entries are <= 41, so the mix is taken exactly on 32-bit
-halves and reduced once per element.
+halves and reduced once per element.  `permute_planes_opt_plain` computes
+the same permutation with plonky2's fast partial layer
+(`constants/poseidon_goldilocks_opt.py`), the schedule the kernels' body
+runs; it proves the tables in the tests, and no kernel is held against it.
 """
 
 import functools
@@ -37,6 +40,7 @@ from ..constants.poseidon_goldilocks import (
     SPONGE_RATE,
     SPONGE_WIDTH,
 )
+from ..constants.poseidon_goldilocks_opt import opt_tables
 from . import goldilocks as gl
 
 W = SPONGE_WIDTH
@@ -88,6 +92,56 @@ def permute_planes_plain(state):
         else:
             state = _sbox(state)
         state = _mds_planes(state)
+    return state
+
+
+@functools.lru_cache(maxsize=None)
+def _opt_tables(device):
+    """The fast schedule's tables as int64 tensors on `device`: first
+    (12, 1), partial (22, 1, 1), init (11, 11, 1), w_hat and v (22, 11, 1)."""
+    t = opt_tables()
+
+    def tensor(x, *shape):
+        flat = x if isinstance(x[0], int) else [v for row in x for v in row]
+        return torch.tensor([gl.signed(v) for v in flat], dtype=torch.int64,
+                            device=device).reshape(*shape)
+
+    n = N_PARTIAL_ROUNDS
+    return (tensor(t["first"], W, 1), tensor(t["partial"], n, 1, 1),
+            tensor(t["init"], W - 1, W - 1, 1),
+            tensor(t["w_hat"], n, W - 1, 1), tensor(t["v"], n, W - 1, 1))
+
+
+def _field_sum(x):
+    """Sum over the leading axis of canonical values, canonical."""
+    acc = x[0]
+    for k in range(1, x.shape[0]):
+        acc = gl.add(acc, x[k])
+    return acc
+
+
+def permute_planes_opt_plain(state):
+    """`permute_planes_plain` through plonky2's fast partial layer: entry
+    constants and the 11 x 11 entry matrix, then per partial round the
+    S-box of element 0, its scalar constant and the sparse mix (row 0
+    `w_hat`, column 0 `v`).  (12, N) int64 -> (12, N), canonical."""
+    rc = _round_constants(state.device)
+    first, partial, init, w_hat, v = _opt_tables(state.device)
+    m00 = opt_tables()["m00"]
+    r0 = HALF_N_FULL_ROUNDS
+    r1 = HALF_N_FULL_ROUNDS + N_PARTIAL_ROUNDS
+    for r in range(r0):
+        state = _mds_planes(_sbox(gl.add(state, rc[r])))
+    state = gl.add(state, first)
+    rest = _field_sum(gl.mul(init, state[None, 1:]).transpose(0, 1))
+    state = torch.cat([state[:1], rest])
+    for i in range(N_PARTIAL_ROUNDS):
+        y = gl.add(_sbox(state[:1]), partial[i])
+        new0 = gl.add(gl.mul_const_small(y, m00),
+                      _field_sum(gl.mul(w_hat[i], state[1:]))[None])
+        state = torch.cat([new0, gl.add(state[1:], gl.mul(v[i], y))])
+    for r in range(r1, N_ROUNDS):
+        state = _mds_planes(_sbox(gl.add(state, rc[r])))
     return state
 
 
@@ -189,6 +243,7 @@ def two_to_one(left, right):
 
 
 __all__ = ["SPONGE_RATE", "W", "permute_planes", "permute_planes_plain",
+           "permute_planes_opt_plain",
            "hash_no_pad_planes", "hash_or_noop_planes", "two_to_one_planes",
            "two_to_one_planes_plain", "zero_state", "permute", "absorb",
            "hash_no_pad", "hash_or_noop", "two_to_one"]

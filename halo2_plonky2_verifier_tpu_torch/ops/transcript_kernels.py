@@ -7,9 +7,10 @@ for a CPU tensor and the kernel for a CUDA tensor, and counts its launches in
 `run_steps_planes.launches`.
 
 The sponge of one proof is a chain of dependent permutations, so the kernel
-is bound by latency, not by throughput: one thread per proof keeps the state
-in registers for every step, and the only memory traffic is the chunks in
-and the squeeze outputs out.
+is bound by latency, not by throughput: one proof's state is spread over a
+group of 16, 8 or 4 lanes (the largest that leaves each of the card's
+schedulers at most one warp), held in registers for every step, and the only
+memory traffic is the chunks in and the squeeze outputs out.
 """
 
 import torch
