@@ -7,8 +7,10 @@ Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
   2. build: nvcc for every kernel of the port, all at once;
   3. kernels: K1 (Merkle paths), K2 (transcript, B = 1024 and 4096, also
      compared at a ragged B = 1023 and at B = 2048), K3 (leaf sponge), K4
-     (BN254 Merkle paths), K5 (BN254 leaf hash, w = 4, 2, 32), K6 (the
-     BN254 permutation), K7 (the bulk Goldilocks permutation, 2^21 states),
+     (BN254 Merkle paths), K5 (BN254 leaf hash, w = 4, 2, 32 at the n=2^11
+     shapes and w = 4, 2 at the n=2^5 ones; also compared at ragged N, w =
+     13 and 4), K6 (the BN254 permutation), K7 (the bulk Goldilocks
+     permutation, 2^17 and 2^21 states; also compared at 2^17 + 1),
      K8 (64 chained Goldilocks permutations on 2^18 states) and K9 (the
      BN254 component probes, 2^16 lanes, chain 64), each against its plain
      PyTorch version on the same seeded inputs at the shapes of the main
@@ -22,8 +24,9 @@ Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
      shape.  K4's and K6's inputs include carry-stressing values (0, 1,
      p - 1, p - 2, words of all ones; for K4's siblings also values >= p) on
      compared lanes, and K6 is also compared on every lane at N = 4097 (a
-     partial last group) and N = 1024.  K1's and K2's first lanes hold the
-     Goldilocks edge values (0, 1, p - 1, p - 2 and u64 values >= p).
+     partial last group) and N = 1024.  K1's, K2's and K7's first lanes,
+     and K5's first compared lanes, hold the Goldilocks edge values (0, 1,
+     p - 1, p - 2 and u64 values >= p).
      K9's whole-permutation probe is compared at a chain of 2 and timed at
      the full chain;
   4. the drives, each with every kernel's launch count set to 0 just before
@@ -197,13 +200,16 @@ TRANSCRIPT_N11 = ("fib_stark_n2048_x8.npz", (2048, 11))
 TRANSCRIPT_N5 = ("fib_stark_n32_x32.npz", (32, 5))
 
 
-def with_gl_edges(planes, shift=0):
-    """Set the first len(EDGE_GL) lanes of (rows, N) int64 planes, in place,
-    to the edge values, rotated by the row (plus `shift`)."""
-    rows, k = planes.shape[0], min(len(EDGE_GL), planes.shape[1])
+def with_gl_edges(planes, shift=0, lanes=None):
+    """Set the first len(EDGE_GL) lanes of (rows, N) int64 planes (or the
+    given `lanes`), in place, to the edge values, rotated by the row (plus
+    `shift`)."""
+    if lanes is None:
+        lanes = torch.arange(min(len(EDGE_GL), planes.shape[1]))
+    rows, k = planes.shape[0], len(lanes)
     vals = [[EDGE_GL[(r + j + shift) % len(EDGE_GL)] for j in range(k)]
             for r in range(rows)]
-    planes[:, :k] = gl.from_u64(vals, planes.device)
+    planes[:, lanes.to(planes.device)] = gl.from_u64(vals, planes.device)
 
 
 def transcript_inputs(rng, fixture, b):
@@ -315,11 +321,18 @@ def check_kernels(rng, B=1024, Q=84):
                           n_act * (BN_PERM_MULS + BN_MONT_MUL) + n * BN_REDC),
                     None)]
 
-    # K5: the BN254 fold shape's three leaf widths, one launch each
+    # K5: the BN254 drives' leaf widths, one launch each: the fold shape's
+    # three (B proofs) and the flagships' two (4B proofs), the plain version
+    # on 128 lanes of each slot, the first 8 of which take the Goldilocks
+    # edge values (words >= p included: the packing takes any u64); also
+    # compared (not timed) on every lane at ragged N, the sponge's last
+    # chunk partial (w = 13) and whole (w = 4)
     cases["K5"] = []
-    for w, lanes in ((4, m), (2, 2 * m), (32, 2 * m)):
+    for w, lanes, slots in ((4, m, 1), (2, 2 * m, 2), (32, 2 * m, 2),
+                            (4, 4 * m, 1), (2, 8 * m, 2)):
         x = gl.from_u64(rand_gl(rng, (w, lanes)), DEVICE)
-        pick5 = sample_lanes(lanes, lanes // m, 128)
+        pick5 = sample_lanes(lanes, slots, 128)
+        with_gl_edges(x, lanes=pick5[:len(EDGE_GL)])
         xs = x[:, pick5].contiguous()
         perms = 0 if w <= 3 else math.ceil(w / 9)
         conv = 1 if w <= 3 else math.ceil(w / 3)
@@ -329,6 +342,13 @@ def check_kernels(rng, B=1024, Q=84):
             f"w={w} N={lanes} (plain on N={pick5.numel()})",
             bound(x.numel() * 8 + lanes * 32,
                   lanes * (perms * BN_PERM_MULS + conv * BN_MONT_MUL)), None))
+    checks["K5"] = []
+    for w, lanes in ((13, 4 * B + 1), (4, B - 1)):
+        x = gl.from_u64(rand_gl(rng, (w, lanes)), DEVICE)
+        with_gl_edges(x)
+        checks["K5"].append(((lambda x=x: bk.hash_or_noop_mont_planes(x)),
+                             (lambda x=x: bk.hash_or_noop_mont_planes_plain(x)),
+                             f"w={w} N={lanes}"))
 
     # K6: one BN254 transcript step of the all-BN254 drive, B=4096, whole,
     # its first states made of the edge values; also compared (not timed)
@@ -353,15 +373,25 @@ def check_kernels(rng, B=1024, Q=84):
                      (lambda x=x: bk.permute_planes_plain(x)), f"N={k}")
                     for k, x in ((k, bn_states(k)) for k in (nb + 1, B))]
 
-    # K7: the SOL bench's streamed probe, 2^21 states, every lane compared;
-    # some lanes hold words >= p (the kernel takes any u64)
-    n7 = 1 << 21
-    x7 = rand_gl(rng, (12, n7))
-    x7[:, ::1021] |= np.uint64(0xFFFFFFFF00000000)
-    st7 = gl.from_u64(x7, DEVICE)
-    cases["K7"] = [(lambda: pk.permute_planes(st7),
-                    lambda: pk.permute_planes_plain(st7), None, f"N={n7}",
-                    bound(2 * st7.numel() * 8, n7 * GL_PERM_MULS), None)]
+    # K7: the GL bulk-hash drive's 2^17 states and the SOL bench's streamed
+    # probe, 2^21 states, every lane compared; some lanes hold words >= p
+    # (the kernel takes any u64), the first ones the edge values; also
+    # compared (not timed) on every lane at a ragged N = 2^17 + 1
+    cases["K7"] = []
+    for n7 in (1 << 17, 1 << 21):
+        x7 = rand_gl(rng, (12, n7))
+        x7[:, ::1021] |= np.uint64(0xFFFFFFFF00000000)
+        st7 = gl.from_u64(x7, DEVICE)
+        with_gl_edges(st7)
+        cases["K7"].append((
+            (lambda st7=st7: pk.permute_planes(st7)),
+            (lambda st7=st7: pk.permute_planes_plain(st7)), None, f"N={n7}",
+            bound(2 * st7.numel() * 8, n7 * GL_PERM_MULS), None))
+    st7 = gl.from_u64(rand_gl(rng, (12, (1 << 17) + 1)), DEVICE)
+    with_gl_edges(st7)
+    checks["K7"] = [((lambda: pk.permute_planes(st7)),
+                     (lambda: pk.permute_planes_plain(st7)),
+                     f"N={st7.shape[1]}")]
 
     # K8: the SOL bench's chained probe, chain 64 over 2^18 states; the
     # plain version on 4096 lanes

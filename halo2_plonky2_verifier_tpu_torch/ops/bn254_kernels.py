@@ -12,7 +12,8 @@ K4, `verify_paths_mont_planes` (csrc/bn254_path.cu), replaces
 `hash_or_noop_mont_planes`.  K6, `permute_planes` (csrc/bn254_permute.cu),
 replaces `permute_mont_planes`.  All three run the optimized schedule of
 `csrc/poseidon_bn254.cuh` on 32-bit limbs; K4 and K5 keep one state per
-thread, K6 spreads one over four lanes of a warp.  Values stay below 2p
+thread (K5's sponge is the header's `leaf_hash`, launched at a shape chosen
+by w), K6 spreads one over four lanes of a warp.  Values stay below 2p
 inside a kernel and are made canonical before they are written, so the
 kernels equal their plain versions (the naive schedule) bit for bit.
 

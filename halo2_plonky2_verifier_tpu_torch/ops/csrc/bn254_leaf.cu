@@ -6,75 +6,59 @@
 // wrapper: ops/bn254_kernels.py:hash_or_noop_mont_planes_plain /
 // hash_or_noop_mont_planes.
 //
-// w <= 3: the elements pack into one Fr (word k = element k, value < 2^192),
-// converted to Montgomery form, no permutation.  Otherwise the sponge:
-// chunks of 9 elements, each triple packed into one Fr that overwrites state
-// slot 1 + j (a partial last chunk overwrites only the ceil(len / 3) slots it
-// covers; a missing element of a covered slot packs as zero), one
-// permutation per chunk.  The output is state[0] (or the packed value), in
-// canonical Montgomery form, which K4 takes as its node.
+// What it computes is poseidon_bn254.cuh's leaf_hash (w <= 3: pack and
+// convert, no permutation; else the rate-9 sponge, output state[0]), made
+// canonical before it is written: canonical Montgomery form, which K4 takes
+// as its node.  Layout: (w, N) u64 planes in, (4, N) out; lanes are the
+// fastest axis, so a warp's loads and stores of one row are coalesced.
 //
 // Bound: the ceil(w / 9) permutations per lane (integer multiplies); the
-// input is read once, w * 8 B per lane, coalesced because lanes are the
-// fastest axis of the (w, N) planes.  w is a launch argument.  The body is
-// poseidon_bn254.cuh's (values below 2p inside, canonical at exit), under
-// the same register budget as K4.
+// input is read once, w * 8 B per lane, a bytes bound some 230 times below
+// the operations bound at w = 32, so staging the input is no lever.  The
+// body is poseidon_bn254.cuh's one-thread permutation in 128 registers,
+// whose rate is the rate its instructions issue at more than the length of
+// its chains: spreading a leaf over four lanes (K6's form: four times the
+// threads and a shorter chain, but 1.64x the products) and taking row 0's
+// dot out of the partial rounds' chain (more work, more live registers)
+// both ran slower (tools/torch_bn254_tune.py, PERF.md §6).  What the
+// design changes is the launch shape, by w (below).
 
 #include <cuda_runtime.h>
 
 #include "poseidon_bn254.cuh"
 
-constexpr int LEAF_THREADS = 128;
-
-// x <- to_mont(pack(in rows lo .. hi-1)) for one lane (below 2p).
-__device__ __forceinline__ void pack_to_mont(const uint64_t* __restrict__ in,
-                                             int lo, int hi, int64_t n,
-                                             int64_t lane,
-                                             uint32_t x[bn::NL]) {
-  uint64_t w[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    if (lo + k < hi) w[k] = in[(int64_t)(lo + k) * n + lane];
-  }
-  bn::load(w, 1, x);
-  bn::to_mont(x);
-}
-
-__global__ void __launch_bounds__(LEAF_THREADS, 4)
+template <int THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     bn254_leaf_kernel(const uint64_t* __restrict__ in,
                       uint64_t* __restrict__ out, int w, int64_t n) {
-  const int64_t lane = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  const int64_t lane = blockIdx.x * (int64_t)THREADS + threadIdx.x;
   if (lane >= n) return;
-  uint32_t s[bn::WIDTH][bn::NL];
-  if (w <= 3) {
-    pack_to_mont(in, 0, w, n, lane, s[0]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < bn::WIDTH; ++e) {
-#pragma unroll
-      for (int k = 0; k < bn::NL; ++k) s[e][k] = 0;
-    }
-    for (int off = 0; off < w; off += 9) {
-      const int end = min(off + 9, w);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int lo = off + 3 * j;
-        if (lo < end) pack_to_mont(in, lo, min(lo + 3, end), n, lane, s[1 + j]);
-      }
-      bn::permute(s);
-    }
-  }
-  bn::reduce(s[0], BN_P);
-  bn::store(out + lane, n, s[0]);
+  uint32_t h[bn::NL];
+  bn::leaf_hash(in + lane, n, w, h);
+  bn::reduce(h, BN_P);
+  bn::store(out + lane, n, h);
 }
 
+template <int THREADS, int MIN_BLOCKS>
+static void launch(const void* in, void* out, int w, long long n,
+                   cudaStream_t stream) {
+  const long long blocks = (n + THREADS - 1) / THREADS;
+  bn254_leaf_kernel<THREADS, MIN_BLOCKS>
+      <<<(unsigned)blocks, THREADS, 0, stream>>>(
+          (const uint64_t*)in, (uint64_t*)out, w, (int64_t)n);
+}
+
+// Two launch shapes, chosen by w: the sponge (w > 3) runs 256-thread blocks
+// with no minimum, where the compiler keeps 128 registers without a spill;
+// the packing alone (w <= 3, no permutation) runs 128 x 4, the sponge's
+// earlier shape, faster there.
 extern "C" int launch_bn254_leaf(const void* in, void* out, int w,
                                  long long n, void* stream) {
   if (n > 0) {
-    const long long blocks = (n + LEAF_THREADS - 1) / LEAF_THREADS;
-    bn254_leaf_kernel<<<(unsigned)blocks, LEAF_THREADS, 0,
-                        (cudaStream_t)stream>>>(
-        (const uint64_t*)in, (uint64_t*)out, w, (int64_t)n);
+    if (w > 3)
+      launch<256, 1>(in, out, w, n, (cudaStream_t)stream);
+    else
+      launch<128, 4>(in, out, w, n, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

@@ -40,12 +40,14 @@
 // `canonical` (or from_mont) before a value leaves them.
 //
 // Registers: one thread's state is 32 limbs; the widest point is the dense
-// mix (old and new state, 64 limbs, and the window).  K4 and K5 run under
+// mix (old and new state, 64 limbs, and the window).  K4 runs under
 // __launch_bounds__(128, 4): 128 registers a thread (a few bytes spill)
-// and 16 resident warps an SM.
+// and 16 resident warps an SM; K5's sponge in 256-thread blocks, where the
+// compiler keeps 128 registers without a spill.
 //
 // permute_group4 is the same schedule spread over four lanes of a warp, one
-// element each (K6; see there).
+// element each (K6; see there).  leaf_hash, at the end, is K5's
+// hash_or_noop of a leaf of Goldilocks words on the one-thread permutation.
 //
 // Built by a host compiler (no __CUDACC__), the carry-flag primitives are
 // plain C++ with the flag in a thread-local variable, so the header's
@@ -410,6 +412,55 @@ __device__ __forceinline__ void permute_group4(uint32_t x[NL], int e,
       for (int j = 0; j < NL; ++j) x[j] = e ? x[j] : z[j];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The leaf hash_or_noop of w Goldilocks words (K5)
+// ---------------------------------------------------------------------------
+// Element j of a leaf is the u64 word in[j * stride].  w <= 3: the words
+// pack into one Fr (word k = element k, value < 2^192), in Montgomery form.
+// Otherwise the sponge: chunks of 9 elements, each triple packed into one Fr
+// that overwrites state slot 1 + j (a partial last chunk overwrites only
+// the ceil(len / 3) slots it covers; a missing element of a covered slot
+// packs as zero), one permutation per chunk; the hash is state[0].
+
+// x <- to_mont(pack(elements lo .. hi - 1)) (< 2p).
+__device__ __forceinline__ void pack_to_mont(const uint64_t* in,
+                                             int64_t stride, int lo, int hi,
+                                             uint32_t x[NL]) {
+  uint64_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (lo + k < hi) w[k] = in[(int64_t)(lo + k) * stride];
+  }
+  load(w, 1, x);
+  to_mont(x);
+}
+
+// One thread: h <- the leaf's hash (< 2p).
+__device__ __forceinline__ void leaf_hash(const uint64_t* in, int64_t stride,
+                                          int w, uint32_t h[NL]) {
+  if (w <= 3) {
+    pack_to_mont(in, stride, 0, w, h);
+    return;
+  }
+  uint32_t s[WIDTH][NL];
+#pragma unroll
+  for (int e = 0; e < WIDTH; ++e) {
+#pragma unroll
+    for (int k = 0; k < NL; ++k) s[e][k] = 0;
+  }
+  for (int off = 0; off < w; off += 3 * (WIDTH - 1)) {
+    const int end = min(off + 3 * (WIDTH - 1), w);
+#pragma unroll
+    for (int j = 0; j < WIDTH - 1; ++j) {
+      const int lo = off + 3 * j;
+      if (lo < end) pack_to_mont(in, stride, lo, min(lo + 3, end), s[1 + j]);
+    }
+    permute(s);
+  }
+#pragma unroll
+  for (int k = 0; k < NL; ++k) h[k] = s[0][k];
 }
 
 }  // namespace bn

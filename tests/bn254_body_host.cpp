@@ -8,36 +8,75 @@
 //   to_mont    x   -> to_mont(x), lazy
 //   from_mont  x   -> from_mont(x), canonical
 //   permute    s0 s1 s2 s3 -> permute, then canonical (one thread, K4/K5/K9)
-//   group      s0 s1 s2 s3 -> permute_group4, then canonical (K6): four
-//              host threads are the four lanes, and __shfl_sync meets them
-//              at a barrier.
-// Build: g++ -std=c++20 -pthread -I <csrc> -I <dir of the generated
-// constants headers> bn254_body_host.cpp
-#include <barrier>
+//   group      s0 s1 s2 s3 -> permute_group4, then canonical (K6)
+//   leaf       w g0 .. g(w-1) -> leaf_hash of the w Goldilocks words, then
+//              canonical (one thread, K5)
+// In the group mode four coroutines on one host thread are the four lanes,
+// and __shfl_sync meets them at a barrier.
+// Build: g++ -std=c++20 -I <csrc> -I <dir of the generated constants
+// headers> bn254_body_host.cpp
+#include <ucontext.h>
+
+#include <algorithm>
 #include <cstdint>
 #include <cstdio>
+#include <functional>
 #include <string>
-#include <thread>
 #include <vector>
 
 #define __device__
 #define __host__
 #define __forceinline__ inline
 #define __constant__
-thread_local int emu_lane = 0;
+using std::min;
+// The lanes of one group run as coroutines on one host thread, in turn: a
+// shuffle writes the lane's value, passes control to the next lane, and
+// reads once every lane has written (a barrier, met in lane order).  One
+// thread keeps the test fast on a busy host, where threads that meet at a
+// barrier wait for each other's time slices.
+constexpr int LANES = 4;
+static ucontext_t emu_main, emu_ctx[LANES];
+static int emu_lane = 0;
 static uint32_t emu_slot[32];
-static std::barrier<>* emu_bar = nullptr;
+static void emu_barrier() {
+  const int me = emu_lane;
+  emu_lane = (me + 1) % LANES;
+  swapcontext(&emu_ctx[me], &emu_ctx[emu_lane]);
+}
 uint32_t __shfl_sync(unsigned, uint32_t v, int src) {
   emu_slot[emu_lane] = v;
-  emu_bar->arrive_and_wait();
+  emu_barrier();
   uint32_t r = emu_slot[src];
-  emu_bar->arrive_and_wait();
+  emu_barrier();
   return r;
 }
 uint32_t __shfl_xor_sync(unsigned m, uint32_t v, int d) {
   return __shfl_sync(m, v, emu_lane ^ d);
 }
 #include "poseidon_bn254.cuh"
+
+// Run lane_fn(e) for e < 4 as the four coroutine lanes of one group.
+static std::function<void(int)> emu_fn;
+static void lane_main() {
+  const int l = emu_lane;
+  emu_fn(l);
+  // lanes finish in order; the last one returns to the caller
+  emu_lane = l + 1;
+  setcontext(l + 1 < LANES ? &emu_ctx[l + 1] : &emu_main);
+}
+static void run_group(std::function<void(int)> lane_fn) {
+  static std::vector<char> stacks(LANES * (1 << 18));
+  emu_fn = std::move(lane_fn);
+  for (int l = 0; l < LANES; ++l) {
+    getcontext(&emu_ctx[l]);
+    emu_ctx[l].uc_stack.ss_sp = stacks.data() + l * (1 << 18);
+    emu_ctx[l].uc_stack.ss_size = 1 << 18;
+    emu_ctx[l].uc_link = &emu_main;
+    makecontext(&emu_ctx[l], lane_main, 0);
+  }
+  emu_lane = 0;
+  swapcontext(&emu_main, &emu_ctx[0]);
+}
 
 static void rd(uint32_t x[bn::NL]) {
   unsigned long long w[4];
@@ -78,17 +117,24 @@ int main() {
     } else if (m == "group") {
       uint32_t s[4][bn::NL];
       for (int e = 0; e < 4; ++e) rd(s[e]);
-      std::barrier<> bar(4);
-      emu_bar = &bar;
-      std::vector<std::thread> th;
-      for (int e = 0; e < 4; ++e)
-        th.emplace_back([&, e] {
-          emu_lane = e;
-          bn::permute_group4(s[e], e, 0, tables);
-          bn::reduce(s[e], BN_P);
-        });
-      for (auto& t : th) t.join();
+      run_group([&](int e) {
+        bn::permute_group4(s[e], e, 0, tables);
+        bn::reduce(s[e], BN_P);
+      });
       for (int e = 0; e < 4; ++e) wr(s[e]);
+    } else if (m == "leaf") {
+      int w = 0;
+      if (scanf("%d", &w) != 1) return 2;
+      std::vector<uint64_t> words(w);
+      for (auto& v : words) {
+        unsigned long long u;
+        if (scanf("%llu", &u) != 1) return 2;
+        v = u;
+      }
+      uint32_t h[bn::NL];
+      bn::leaf_hash(words.data(), 1, w, h);
+      bn::reduce(h, BN_P);
+      wr(h);
     } else {
       return 3;
     }

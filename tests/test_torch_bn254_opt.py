@@ -25,12 +25,17 @@ from halo2_plonky2_verifier_tpu_torch.constants import poseidon_bn254_opt as tpo
 from halo2_plonky2_verifier_tpu_torch.constants.poseidon_bn254 import generate
 from halo2_plonky2_verifier_tpu_torch.ops import _build
 from halo2_plonky2_verifier_tpu_torch.ops import bn254 as fr
+from halo2_plonky2_verifier_tpu_torch.ops import bn254_kernels as bk
+from halo2_plonky2_verifier_tpu_torch.ops import goldilocks as gl
 from halo2_plonky2_verifier_tpu_torch.ops import poseidon_bn254 as tpb
 
 P = fr.P
 R = fr.R
 EDGE = (0, 1, P - 1, P - 2, (1 << 64) - 1, (1 << 128) - 1, (1 << 192) - 1,
         (P >> 192 << 192) - 1)
+# Goldilocks words that stress the leaf packing: 0, 1, p - 1, p - 2 and the
+# u64 values >= p a tampered proof can carry
+EDGE_GL = (0, 1, gl.P - 1, gl.P - 2, gl.P, gl.P + 1, (1 << 64) - 1, 1 << 63)
 HOST_HARNESS = Path(__file__).resolve().parent / "bn254_body_host.cpp"
 
 
@@ -146,14 +151,18 @@ def host_body(tmp_path_factory):
         if name in _build.GENERATED:
             (out / name).write_text(text)
     exe = out / "bn254_body_host"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-pthread", "-I",
+    subprocess.run([cxx, "-std=c++20", "-O1", "-I",
                     str(_build.CSRC), "-I", str(out), "-o", str(exe),
                     str(HOST_HARNESS)], check=True, capture_output=True)
 
     def run(mode, records):
-        text = f"{mode} {len(records)}\n" + "\n".join(
-            " ".join(str((v >> (64 * k)) & ((1 << 64) - 1))
-                     for v in rec for k in range(4)) for rec in records)
+        if mode == "leaf":              # records of Goldilocks words
+            text = f"{mode} {len(records)}\n" + "\n".join(
+                " ".join(map(str, [len(rec), *rec])) for rec in records)
+        else:                           # records of Fr values
+            text = f"{mode} {len(records)}\n" + "\n".join(
+                " ".join(str((v >> (64 * k)) & ((1 << 64) - 1))
+                         for v in rec for k in range(4)) for rec in records)
         lines = subprocess.run([str(exe)], input=text, capture_output=True,
                                text=True, check=True).stdout.splitlines()
         words = [[int(w) for w in line.split()] for line in lines]
@@ -193,3 +202,23 @@ def test_host_body_field_ops(host_body):
         assert r % P == a * R % P and r < 2 * P
     for (a,), (r,) in zip(singles, host_body("from_mont", singles)):
         assert r == a * r_inv % P
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 9, 10, 13, 32])
+def test_host_body_leaf_hash_equals_plain(host_body, w):
+    """K5's leaf hash (poseidon_bn254.cuh:leaf_hash, one thread a leaf)
+    gives the plain hash_or_noop's canonical Montgomery hash: w <= 3 packs
+    without a permutation; the sponge takes whole chunks (w = 9), a partial
+    last chunk covering one slot with one word (w = 10), two slots (13) and
+    three (32); on seeded words with the edge values, some >= p, on every
+    leaf's first words."""
+    rng = np.random.default_rng(14 + w)
+    words = rng.integers(0, 1 << 64, size=(w, 3), dtype=np.uint64)
+    for leaf in range(3):                     # the edge values, rotated
+        for j in range(min(w, len(EDGE_GL))):
+            words[j, leaf] = EDGE_GL[(j + leaf) % len(EDGE_GL)]
+    want = fr.to_ints(bk.hash_or_noop_mont_planes_plain(
+        gl.from_u64(words)).T.contiguous())
+    got = host_body("leaf", [[int(v) for v in words[:, leaf]]
+                             for leaf in range(3)])
+    assert [h for (h,) in got] == want

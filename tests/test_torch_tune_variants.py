@@ -1,0 +1,95 @@
+"""The tune tools' variant builds, without a card: every variant of
+`tools/torch_gl_tune.py` (K1, K2, K7) and `tools/torch_bn254_tune.py` (K4,
+K5, K6) is a copy of the port's CUDA sources with text substitutions, so each
+substitution must still find its text in the sources (a kernel edited
+without its tuner would otherwise fail only on the card), each variant must
+carry its parameters into the copy, and a variant built from another
+commit's sources (--parent) must include that commit's headers, not this
+one's.  The launch paths the tuners substitute (K5's choice by w, K7's
+launch) are pinned here by the same texts.  No nvcc runs: only the copied
+sources are read.
+"""
+
+import os
+import sys
+
+import pytest
+
+TOOLS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tools")
+if TOOLS not in sys.path:
+    sys.path.append(TOOLS)
+
+import torch_bn254_tune as bt  # noqa: E402
+import torch_gl_tune as gt  # noqa: E402
+from halo2_plonky2_verifier_tpu_torch.ops import _build  # noqa: E402
+
+VARIANTS = (gt.K1_VARIANTS + gt.K2_VARIANTS + gt.K7_VARIANTS
+            + bt.K4_VARIANTS + bt.K5_VARIANTS + bt.K6_VARIANTS)
+
+
+def test_variant_tags_are_unique():
+    tags = [v[0] for v in VARIANTS]
+    assert len(tags) == len(set(tags))
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=[v[0] for v in VARIANTS])
+def test_variant_substitutes_into_the_sources(tmp_path, variant):
+    """The copy holds every substitution's new text, and every header of
+    csrc/ sits beside it (the copies the source's #include finds)."""
+    tag, params, source, subs = variant
+    path = gt.variant_source(tag, source, subs, out=tmp_path)
+    d = os.path.dirname(path)
+    assert os.path.basename(path) == source
+    for name, pairs in subs.items():
+        text = open(os.path.join(d, name)).read()
+        for old, new in pairs:
+            assert new in text
+            if old not in new:
+                assert old not in text
+    headers = {p.name for p in _build.CSRC.glob("*.cuh")}
+    assert headers <= set(os.listdir(d))
+    for value in params.values():
+        if isinstance(value, int) and value > 1:
+            assert str(value) in open(path).read() + "".join(
+                open(os.path.join(d, n)).read() for n in subs)
+
+
+def test_missing_text_raises(tmp_path):
+    with pytest.raises(RuntimeError, match="not found"):
+        gt.variant_source("bad", "permute.cu",
+                          {"permute.cu": [("no such text", "x")]},
+                          out=tmp_path)
+
+
+def test_parent_variant_takes_the_parent_headers(tmp_path):
+    """A --parent variant copies the source and the headers from the
+    parent's directory (a checkout's csrc/ under it, or the directory)."""
+    parent = tmp_path / "parent" / "halo2_plonky2_verifier_tpu_torch" / \
+        "ops" / "csrc"
+    parent.mkdir(parents=True)
+    (parent / "permute.cu").write_text("// the parent's K7\n")
+    (parent / "poseidon_gl.cuh").write_text("// the parent's body\n")
+    base = gt.parent_csrc(tmp_path / "parent")
+    assert base == parent and gt.parent_csrc(parent) == parent
+    path = gt.variant_source("p", "permute.cu", {}, base, out=tmp_path / "v")
+    d = os.path.dirname(path)
+    assert open(path).read() == "// the parent's K7\n"
+    assert sorted(os.listdir(d)) == ["permute.cu", "poseidon_gl.cuh"]
+
+
+def test_launch_paths_the_tuners_substitute():
+    """K5 chooses its launch shape by w alone: the sponge (w > 3) at 256 x
+    1, the packing (w <= 3) at 128 x 4, the two paths the sweep
+    measured; K7 has one launch for every N.  The launch each variant
+    replaces occurs once in its source, beside the one entry point."""
+    leaf = (_build.CSRC / "bn254_leaf.cu").read_text()
+    assert leaf.count(bt.K5_LAUNCH) == 1 and leaf.count(bt.K5_ENTRY) == 1
+    assert leaf.count("launch<") == 2
+    assert bt.K5_LAUNCH.split("\n")[0].strip() == "if (w > 3)"
+    assert "launch<256, 1>" in bt.K5_LAUNCH.split("\n")[1]
+    assert "launch<128, 4>" in bt.K5_LAUNCH.split("\n")[3]
+    permute = (_build.CSRC / "permute.cu").read_text()
+    assert permute.count(gt.K7_LAUNCH) == 1
+    assert permute.count(gt.K7_ENTRY) == 1
+    assert gt.K7_PARTIAL in permute and all(s in permute for s in gt.K7_SHAPE)
