@@ -6,12 +6,15 @@ Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
   1. device: the card's name and power limit;
   2. build: nvcc for every kernel of the port, all at once;
   3. kernels: K1 (Merkle paths), K2 (transcript, B = 1024 and 4096, also
-     compared at a ragged B = 1023 and at B = 2048), K3 (leaf sponge), K4
+     compared at a ragged B = 1023 and at B = 2048), K3 (leaf sponge, w =
+     32; also compared at N = 1, 100 and a ragged 2 * 84 * 1024 + 1, each at
+     w = 5, 8, 9, 13 and 32), K4
      (BN254 Merkle paths), K5 (BN254 leaf hash, w = 4, 2, 32 at the n=2^11
      shapes and w = 4, 2 at the n=2^5 ones; also compared at ragged N, w =
      13 and 4), K6 (the BN254 permutation), K7 (the bulk Goldilocks
      permutation, 2^17 and 2^21 states; also compared at 2^17 + 1),
-     K8 (64 chained Goldilocks permutations on 2^18 states) and K9 (the
+     K8 (64 chained Goldilocks permutations on 2^18 states; also compared
+     at chain 0 and 1 on 2^18 + 1) and K9 (the
      BN254 component probes, 2^16 lanes, chain 64), each against its plain
      PyTorch version on the same seeded inputs at the shapes of the main
      paths; the results must be equal (tolerance 0: these are integers, and
@@ -24,9 +27,9 @@ Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
      shape.  K4's and K6's inputs include carry-stressing values (0, 1,
      p - 1, p - 2, words of all ones; for K4's siblings also values >= p) on
      compared lanes, and K6 is also compared on every lane at N = 4097 (a
-     partial last group) and N = 1024.  K1's, K2's and K7's first lanes,
-     and K5's first compared lanes, hold the Goldilocks edge values (0, 1,
-     p - 1, p - 2 and u64 values >= p).
+     partial last group) and N = 1024.  K1's, K2's, K7's and the extra K3
+     and K8 comparisons' first lanes, and K5's first compared lanes, hold
+     the Goldilocks edge values (0, 1, p - 1, p - 2 and u64 values >= p).
      K9's whole-permutation probe is compared at a chain of 2 and timed at
      the full chain;
   4. the drives, each with every kernel's launch count set to 0 just before
@@ -284,13 +287,26 @@ def check_kernels(rng, B=1024, Q=84):
         for c, k in (transcript_inputs(rng, TRANSCRIPT_N11, b_)
                      for b_ in (B - 1, 2 * B))]
 
-    # K3: the two step-leaf slots of the n=2^11 proofs, w=32
+    # K3: the two step-leaf slots of the n=2^11 proofs, w=32; also compared
+    # (not timed) on every lane at fewer lanes than SMs (1, 100) and at a
+    # ragged N, at widths of one partial chunk (5), whole chunks (8, 32) and
+    # a partial last chunk (9, 13), the first lanes the edge values
     leaves = gl.from_u64(rand_gl(rng, (32, 2 * m)), DEVICE)
     cases["K3"] = [(lambda: mk.hash_no_pad_planes(leaves),
                     lambda: mk.hash_no_pad_planes_plain(leaves), None,
                     f"w=32 N={2 * m}",
                     bound(leaves.numel() * 8 + 2 * m * 32,
                           4 * 2 * m * GL_PERM_MULS), None)]
+    checks["K3"] = []
+    for lanes in (1, 100, 2 * m + 1):
+        for w in (5, 8, 9, 13, 32):
+            x = rand_gl(rng, (w, lanes))
+            x[:, ::1021] |= np.uint64(0xFFFFFFFF00000000)
+            x = gl.from_u64(x, DEVICE)
+            with_gl_edges(x)
+            checks["K3"].append(((lambda x=x: mk.hash_no_pad_planes(x)),
+                                 (lambda x=x: mk.hash_no_pad_planes_plain(x)),
+                                 f"w={w} N={lanes}"))
 
     # K4: the BN254 fold shape's slots, node in Montgomery form, some
     # siblings >= p (as in a tampered proof); the plain version on 64 lanes
@@ -405,6 +421,14 @@ def check_kernels(rng, B=1024, Q=84):
                     f"N={pick8.numel()})",
                     bound(2 * st8.numel() * 8, n8 * chain8 * GL_PERM_MULS),
                     None)]
+    # (also compared on every lane at chain 0, a copy, and chain 1 on a
+    # ragged N = 2^18 + 1, the first lanes the edge values)
+    st8r = gl.from_u64(rand_gl(rng, (12, n8 + 1)), DEVICE)
+    with_gl_edges(st8r)
+    checks["K8"] = [
+        ((lambda c=c: pk.permute_planes_chained(st8r, c)),
+         (lambda c=c: pk.permute_planes_chained_plain(st8r, c)),
+         f"chain={c} N={n8 + 1}") for c in (0, 1)]
 
     # K9: every run of tools/torch_bn254_micro.py at its lanes and chain;
     # the plain version on 4096 lanes, the whole permutation compared at a

@@ -490,4 +490,31 @@ __device__ __forceinline__ void permute_group(uint64_t x[], int l, int base,
   for (int j = 0; j < E; ++j) x[j] = canonicalize(x[j]);
 }
 
+// ---------------------------------------------------------------------------
+// The leaf sponge (K3), one thread a leaf
+// ---------------------------------------------------------------------------
+
+// plonky2's hash_n_to_m_no_pad of the w words in[k * n + lane] (k < w; the
+// leaf's column of (w, n) planes): overwrite-mode absorb at rate 8, each
+// chunk of up to 8 words replacing the front of the state, then one
+// permutation; out <- state[0:4].  w = 0 gives zeros, as the plain version.
+template <int PARTIAL_UNROLL = 1>
+__device__ __forceinline__ void leaf_sponge(const uint64_t* in, int64_t n,
+                                            int64_t lane, int w,
+                                            uint64_t out[4]) {
+  uint64_t s[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) s[k] = 0;
+  for (int off = 0; off < w; off += 8) {
+    const int len = w - off < 8 ? w - off : 8;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (k < len) s[k] = in[(int64_t)(off + k) * n + lane];
+    }
+    poseidon_gl_permute<PARTIAL_UNROLL>(s);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) out[k] = s[k];
+}
+
 }  // namespace gl

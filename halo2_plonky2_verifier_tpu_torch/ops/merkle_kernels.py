@@ -14,7 +14,9 @@ all levels and skips the permutation of a level that is not active.
 K3, `hash_no_pad_planes` (csrc/leaf_sponge.cu), replaces
 `merkle_pallas.py:hash_no_pad_planes`.  It is bound by its ceil(w/8)
 permutations per leaf: one thread per leaf keeps the sponge state in
-registers and reads each input row once, coalesced across lanes.
+registers and reads each input row once, coalesced across lanes; the launch
+is sized to the card's SMs (csrc/sized_launch.cuh), so that no round of
+blocks leaves SMs idle for a whole chain of permutations.
 
 Layout: lanes last, (rows, N) int64, as in the JAX package's plane form.
 """

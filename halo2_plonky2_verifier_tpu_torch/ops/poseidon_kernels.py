@@ -14,7 +14,8 @@ permutation behind the batch-last hashing API of `ops/poseidon.py`.  K8,
 `poseidon_pallas.py:permute_planes_chained`, the speed-of-light probe of
 `tools/torch_sol_bench.py`.  Both are bound by the permutation's integer
 multiplies: one thread per state keeps the 12 elements in registers on the
-shared K0 body (`csrc/poseidon_gl.cuh`), K7 in 1024-thread blocks.  The TPU
+shared K0 body (`csrc/poseidon_gl.cuh`), K7 in 1024-thread blocks, K8 in a
+launch sized to the card's SMs (`csrc/sized_launch.cuh`).  The TPU
 kernels' bf16 limb-plane MDS, POSEIDON_GROUPS regrouping and lane tiles are
 not carried over.
 

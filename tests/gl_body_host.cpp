@@ -18,6 +18,8 @@
 //            s0..s11 -> permute_group<4 or 16> (K2): that many
 //            coroutines on one host thread are the lanes of one group, and
 //            __shfl_sync meets them at a barrier.
+//   sponge   w g0 .. g(w-1) -> leaf_sponge of the w words: the leaf's
+//            4-word hash (one thread, K3)
 // Build: g++ -std=c++20 -I <csrc> -I <dir of the generated
 // constants header> gl_body_host.cpp
 #include <ucontext.h>
@@ -131,6 +133,13 @@ int main() {
       gl::Acc a = {0, 0, 0};
       for (int k = 0; k < gl::W; ++k) gl::acc_mul(a, x[k], rd());
       wr(gl::acc_reduce(a));
+    } else if (m == "sponge") {
+      const int w = (int)rd();
+      std::vector<uint64_t> words(w);
+      for (auto& v : words) v = rd();
+      uint64_t h[4];
+      gl::leaf_sponge(words.data(), 1, 0, w, h);
+      for (auto v : h) wr(v);
     } else {
       uint64_t s[gl::W];
       for (auto& v : s) v = rd();

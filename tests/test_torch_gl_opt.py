@@ -5,7 +5,8 @@ against the naive plain permutation and `refimpl/poseidon.py`, the generated
 constants header against the tables, and the kernels' body
 (`csrc/poseidon_gl.cuh`) built for the host by a C++ compiler, in its
 one-thread form and its lane-split forms (the lanes coroutines on one host
-thread, met at a barrier at every shuffle), against the plain path.
+thread, met at a barrier at every shuffle), and K3's leaf sponge on it,
+against the plain path.
 
 Inputs are made from a seed with numpy, with the edge values 0, 1, p - 1,
 p - 2 and the u64 values >= p that a tampered proof can carry (p, p + 1,
@@ -27,6 +28,7 @@ from halo2_plonky2_verifier_tpu_torch.constants import (
     poseidon_goldilocks as tpg, poseidon_goldilocks_opt as tpo)
 from halo2_plonky2_verifier_tpu_torch.ops import _build
 from halo2_plonky2_verifier_tpu_torch.ops import goldilocks as gl
+from halo2_plonky2_verifier_tpu_torch.ops import merkle_kernels as mk
 from halo2_plonky2_verifier_tpu_torch.ops import poseidon as pos
 
 P = gl.P
@@ -172,6 +174,8 @@ def host_body(tmp_path_factory):
                     str(HOST_HARNESS)], check=True, capture_output=True)
 
     def run(mode, records):
+        if mode == "sponge":            # records of w words, w first
+            records = [[len(rec), *rec] for rec in records]
         text = f"{mode} {len(records)}\n" + "\n".join(
             " ".join(str(v) for v in rec) for rec in records)
         lines = subprocess.run([str(exe)], input=text, capture_output=True,
@@ -219,3 +223,22 @@ def test_host_body_field_ops(host_body):
     assert host_body("mds", states) == [
         [sum(m[r][c] * s[c] for c in range(12)) % P for r in range(12)]
         for s in states]
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 13, 16, 17, 24,
+                               32, 135])
+def test_host_body_leaf_sponge_equals_plain(host_body, w):
+    """K3's sponge (poseidon_gl.cuh:leaf_sponge, one thread a leaf) gives
+    the plain hash_no_pad_planes' hash: one partial chunk (w < 8), whole
+    chunks (8, 16, 24, 32), a last chunk of one word (9, 17) or more (12,
+    13), and plonky2's widest PLONK leaf (135, num_wires); on seeded u64
+    words with the edge values, some >= p, on every leaf's first words."""
+    rng = np.random.default_rng(25 + w)
+    words = rng.integers(0, 1 << 64, size=(w, 3), dtype=np.uint64)
+    for leaf in range(3):                     # the edge values, rotated
+        for j in range(min(w, len(EDGE))):
+            words[j, leaf] = EDGE[(j + leaf) % len(EDGE)]
+    want = [[int(v) for v in row] for row in gl.to_u64(
+        mk.hash_no_pad_planes_plain(gl.from_u64(words))).T]
+    assert host_body("sponge", [[int(v) for v in words[:, leaf]]
+                                for leaf in range(3)]) == want

@@ -1,13 +1,13 @@
 """The tune tools' variant builds, without a card: every variant of
-`tools/torch_gl_tune.py` (K1, K2, K7) and `tools/torch_bn254_tune.py` (K4,
-K5, K6) is a copy of the port's CUDA sources with text substitutions, so each
-substitution must still find its text in the sources (a kernel edited
-without its tuner would otherwise fail only on the card), each variant must
-carry its parameters into the copy, and a variant built from another
-commit's sources (--parent) must include that commit's headers, not this
-one's.  The launch paths the tuners substitute (K5's choice by w, K7's
-launch) are pinned here by the same texts.  No nvcc runs: only the copied
-sources are read.
+`tools/torch_gl_tune.py` (K1, K2, K3, K7, K8) and
+`tools/torch_bn254_tune.py` (K4, K5, K6) is a copy of the port's CUDA
+sources with text substitutions, so each substitution must still find its
+text in the sources (a kernel edited without its tuner would otherwise fail
+only on the card), each variant must carry its parameters into the copy, and
+a variant built from another commit's sources (--parent) must include that
+commit's headers, not this one's.  The launch paths the tuners substitute
+(K5's choice by w, K7's launch, K3's and K8's sized launch) are pinned here
+by the same texts.  No nvcc runs: only the copied sources are read.
 """
 
 import os
@@ -24,8 +24,9 @@ import torch_bn254_tune as bt  # noqa: E402
 import torch_gl_tune as gt  # noqa: E402
 from halo2_plonky2_verifier_tpu_torch.ops import _build  # noqa: E402
 
-VARIANTS = (gt.K1_VARIANTS + gt.K2_VARIANTS + gt.K7_VARIANTS
-            + bt.K4_VARIANTS + bt.K5_VARIANTS + bt.K6_VARIANTS)
+VARIANTS = (gt.K1_VARIANTS + gt.K2_VARIANTS + gt.K3_VARIANTS
+            + gt.K7_VARIANTS + gt.K8_VARIANTS + bt.K4_VARIANTS
+            + bt.K5_VARIANTS + bt.K6_VARIANTS)
 
 
 def test_variant_tags_are_unique():
@@ -93,3 +94,28 @@ def test_launch_paths_the_tuners_substitute():
     assert permute.count(gt.K7_LAUNCH) == 1
     assert permute.count(gt.K7_ENTRY) == 1
     assert gt.K7_PARTIAL in permute and all(s in permute for s in gt.K7_SHAPE)
+
+
+def test_sized_launch_texts_the_tuner_substitutes():
+    """K3 and K8 launch through sized_launch.cuh, once each, at the shapes
+    and unrolling the sweeps replace, K3 with a lane loop and K8 one lane a
+    thread (the lane and the kernel's last store, which the variants of the
+    other form swap, once each); the
+    sizing computes its threads and
+    blocks once; K3's sponge makes its permutations at one call, the one
+    the short-last-permutation variant splits."""
+    for source, sized, shape, partial, lane, tail in (
+            ("leaf_sponge.cu", gt.K3_SIZED, gt.K3_SHAPE, gt.K3_PARTIAL,
+             gt.LANE_LOOP, gt.K3_TAIL),
+            ("permute_chained.cu", gt.K8_SIZED, gt.K8_SHAPE, gt.K8_PARTIAL,
+             gt.LANE, gt.K8_TAIL)):
+        text = (_build.CSRC / source).read_text()
+        assert text.count(sized) == 1 and text.count("sized_launch<") == 1
+        assert all(text.count(s) == 1
+                   for s in (*shape, partial, lane, tail))
+    sizing = (_build.CSRC / "sized_launch.cuh").read_text()
+    assert sizing.count(gt.SIZED_THREADS) == 1
+    assert sizing.count(gt.SIZED_BLOCKS) == 1
+    body = (_build.CSRC / "poseidon_gl.cuh").read_text()
+    assert body.count(gt.K3_LAST_PERMUTE) == 1
+    assert body.count(gt.K3_SPONGE) == 1

@@ -7,6 +7,7 @@ Three measurements, each on the card's own build (`ops/_build.py` flags):
   census  `cuobjdump -sass` of the K1, K2, K3, K7 and K8 libraries, as
           counts of each SASS opcode (what a permutation lowers to), and
           the size of each loop body (a round, where the rounds are loops);
+          with --parent, whether each one's SASS equals the parent's;
   sweep   variants built from copies of the sources with text
           substitutions, each in its own directory under build/gl_tune/:
           K1 at other (threads a block, minimum blocks an SM) launch bounds
@@ -15,26 +16,32 @@ Three measurements, each on the card's own build (`ops/_build.py` flags):
           fixed (lanes a proof, threads a block) whatever the batch, and
           unrolled; K7 at other (states a thread, threads a block, minimum
           blocks an SM) and partial-round unrolling, and spread over groups
-          of four lanes (permute_group<4>), at 2^17 and 2^21 states, beside
-          the parent commit's K7 built from its sources (--parent).  Each
-          variant's ptxas registers and spills, its time
-          (`chip_smoke.cuda_ms`: the median of 5 launches between their own
-          CUDA events) and whether its output equals the built kernel's, on chip_smoke's inputs (K1: the n=2^11 slots, 430,080
-          paths of depth <= 8; K2: the n=2^11 schedule at B=1024, 57 steps,
-          the n=2^5 one at B=4096, 47 steps, and the n=2^11 one at B=2048,
-          between the two; K7: seeded states, some words >= p).  The built
-          kernels are timed first and last (K7: the parent's and the built
-          one first, in turn, and again last, in the opposite order);
+          of four lanes (permute_group<4>), at 2^17 and 2^21 states; K3
+          (w=32 at 172,032 and 688,128 leaves) and K8 (chain 64 at 2^18
+          states, chain 4 at 2^20) at other launch bounds and unrolling of
+          their launch sized to the card, on one round of blocks, and at
+          fixed launches, K3 also with a last permutation that computes
+          only the four words it hashes.  Each variant's ptxas registers
+          and spills, its time (`chip_smoke.cuda_ms`: the median of 5
+          launches between their own CUDA events) and whether its output
+          equals the built kernel's, on chip_smoke's inputs (K1: the n=2^11
+          slots, 430,080 paths of depth <= 8; K2: the n=2^11 schedule at
+          B=1024, 57 steps, the n=2^5 one at B=4096, 47 steps, and the
+          n=2^11 one at B=2048, between the two; K3, K7, K8: seeded words,
+          some >= p).  The built kernels are timed first and last; with
+          --parent, the parent commit's K3, K7 and K8, built from its
+          sources, and the built ones are timed first, in turn (parent,
+          built, built, parent), and again last in the opposite order;
   floor   the dependent chain alone: K2 at B=1 (one group of lanes, one
           warp on the card) for each group size, and K8 on one state at a
           chain of 64 (the one-thread permutation's latency).
 
-Usage: python3 tools/torch_gl_tune.py [--out FILE] [--sweeps k1,k2,k7,floor]
-       [--parent DIR]   (one CUDA card, nvcc, cuobjdump); FILE (default
-build/gl_tune/tune.json) gets every number; DIR holds the csrc/ sources of
-the commit to compare K7 with (e.g. `git archive <commit>
-halo2_plonky2_verifier_tpu_torch/ops/csrc | tar -x -C DIR`, then DIR/
-halo2_plonky2_verifier_tpu_torch/ops/csrc).
+Usage: python3 tools/torch_gl_tune.py [--out FILE]
+       [--sweeps k1,k2,k3,k7,k8,floor] [--parent DIR]   (one CUDA card,
+nvcc, cuobjdump); FILE (default build/gl_tune/tune.json) gets every number;
+DIR holds the csrc/ sources of the commit to compare with (e.g. `git
+archive <commit> halo2_plonky2_verifier_tpu_torch/ops/csrc | tar -x -C DIR`,
+then DIR/halo2_plonky2_verifier_tpu_torch/ops/csrc).
 """
 
 import argparse
@@ -266,23 +273,166 @@ K7_VARIANTS = [k7_variant(t, b, p) for t, b, p in (
             k7_group_variant(t) for t in (128, 256)]
 K7_SIZES = (1 << 17, 1 << 21)
 
+# K3's and K8's launch as they stand in leaf_sponge.cu and permute_chained.cu
+# (sized to the card by sized_launch.cuh, at most THREADS a block; K3 with a
+# lane loop that runs once as launched, K8 one lane a thread), and the forms
+# the sweeps put in its place: the sized threads rounded up to one warp in
+# place of four (one a scheduler) ("sized32"); the sized launch one lane a
+# thread ("single") and with each thread taking every grid-th lane
+# ("loop"), the latter on at most one round of blocks ("persistent"); THREADS
+# a block on at most one round of blocks, each thread taking every grid-th
+# lane ("resident", one thread a slot); a fixed launch of ceil(n / THREADS)
+# blocks ("fixed").
+K3_SHAPE = ("constexpr int SPONGE_THREADS = 1024;",
+            "constexpr int SPONGE_MIN_BLOCKS = 1;")
+K3_PARTIAL = "constexpr int SPONGE_PARTIAL_UNROLL = 1;"
+K3_SIZED = """    const cudaError_t e = sized_launch<SPONGE_THREADS>(
+        card, leaf_sponge_kernel, n, threads, blocks);"""
+K3_TAIL = "out[k * n + lane] = h[k];\n  }\n}"
+K8_SHAPE = ("constexpr int CHAINED_THREADS = 1024;",
+            "constexpr int CHAINED_MIN_BLOCKS = 1;")
+K8_PARTIAL = "constexpr int CHAINED_PARTIAL_UNROLL = 1;"
+K8_SIZED = """    const cudaError_t e = sized_launch<CHAINED_THREADS>(
+        card, permute_chained_kernel, n, threads, blocks);"""
+K8_TAIL = "out[e * n + lane] = s[e];\n}"
+LANE = """  const int64_t lane = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (lane >= n) return;"""
+LANE_LOOP = """  for (int64_t lane = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+       lane < n; lane += (int64_t)gridDim.x * blockDim.x) {"""
+SIZED_THREADS = "threads = (int)((lanes + 127) / 128 * 128);"
+SIZED_BLOCKS = "blocks = (n + threads - 1) / threads;"
+ONE_ROUND = "\n  if (blocks > slots) blocks = slots;"
+# K3 whose last permutation computes only the rows it hashes: the last
+# round's mix gives state[0:4] (inserted before leaf_sponge, which calls it
+# for its last chunk).
+K3_LAST_PERMUTE = "    poseidon_gl_permute<PARTIAL_UNROLL>(s);\n  }"
+K3_SPONGE = ("template <int PARTIAL_UNROLL = 1>\n__device__ __forceinline__ "
+             "void leaf_sponge(")
+K3_HEAD4 = """// The permutation of which only state[0:4] is read: the last
+// round's mix computes rows 0..3 alone.
+template <int PARTIAL_UNROLL = 1>
+__device__ __forceinline__ void permute_head4(uint64_t s[W]) {
+#pragma unroll 1
+  for (int r = 0; r < HALF; ++r) full_round(s, r);
+  partial_entry(s);
+#pragma unroll (PARTIAL_UNROLL)
+  for (int i = 0; i < NP; ++i) partial_round(s, i);
+#pragma unroll 1
+  for (int r = HALF + NP; r < ROUNDS - 1; ++r) full_round(s, r);
+#pragma unroll
+  for (int i = 0; i < W; ++i)
+    s[i] = sbox(add_lazy(s[i], GL_RC[(ROUNDS - 1) * W + i]));
+  uint64_t out[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    uint64_t sum_lo = 0, sum_hi = 0;
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const uint64_t x = s[(r + i) % W];
+      sum_lo += (uint64_t)(uint32_t)x * gl_mds_circ(i);
+      sum_hi += (x >> 32) * gl_mds_circ(i);
+    }
+    if (r == 0) {
+      sum_lo += (uint64_t)(uint32_t)s[0] * GL_MDS_DIAG0;
+      sum_hi += (s[0] >> 32) * GL_MDS_DIAG0;
+    }
+    out[r] = reduce_halves(sum_lo, sum_hi);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) s[r] = canonicalize(out[r]);
+}
 
-def census(name):
-    """(Counter of SASS opcodes in kernel `name`'s built library, its loops):
-    each loop (a backward branch) as {"kernel", "start", "end",
-    "instructions", "top"}: the instructions from the branch target to the
-    branch, and the five commonest opcodes among them."""
-    lib = _build.lib_path(name, _build.header_texts())
+"""
+
+
+def chain_variant(k, t, b, partial=1, launch="sized", head4=False):
+    """(tag, params, source, subs) of K3 (k = "k3") or K8 ("k8") at launch
+    bounds (t threads, b minimum blocks), `partial` rounds unrolled, and
+    `launch` "sized" (the built form), "sized32", "single", "loop",
+    "persistent", "resident" or "fixed"; K3 with `head4`, its last
+    permutation computing state[0:4] alone."""
+    source, shape, part, sized, tail, prefix, looped = {
+        "k3": ("leaf_sponge.cu", K3_SHAPE, K3_PARTIAL, K3_SIZED, K3_TAIL,
+               "SPONGE", True),
+        "k8": ("permute_chained.cu", K8_SHAPE, K8_PARTIAL, K8_SIZED, K8_TAIL,
+               "CHAINED", False)}[k]
+    subs = {source: [
+        (shape[0], f"constexpr int {prefix}_THREADS = {t};"),
+        (shape[1], f"constexpr int {prefix}_MIN_BLOCKS = {b};"),
+        (part, f"constexpr int {prefix}_PARTIAL_UNROLL = {partial};")]}
+    loop = {"single": False, "loop": True, "persistent": True,
+            "resident": True}.get(launch, looped)
+    if loop != looped:       # the lane loop put in or taken out
+        if loop:
+            subs[source] += [(LANE, LANE_LOOP),
+                             (tail, tail.replace("\n}", "\n  }\n}"))]
+        else:
+            subs[source] += [(LANE_LOOP, LANE),
+                             (tail, tail.replace("\n  }\n}", "\n}"))]
+    sizing = []
+    if launch == "fixed":
+        subs[source].append((sized, f"""    threads = {prefix}_THREADS;
+    blocks = (n + threads - 1) / threads;
+    const cudaError_t e = cudaSuccess;"""))
+    elif launch == "sized32":
+        sizing.append((SIZED_THREADS,
+                       "threads = (int)((lanes + 31) / 32 * 32);"))
+    elif launch in ("persistent", "resident"):
+        sizing.append((SIZED_BLOCKS, SIZED_BLOCKS + ONE_ROUND))
+        if launch == "resident":
+            sizing.append((SIZED_THREADS, "threads = MAX_THREADS;"))
+    if sizing:
+        subs["sized_launch.cuh"] = sizing
+    if head4:
+        subs["poseidon_gl.cuh"] = [
+            (K3_LAST_PERMUTE, "    if (off + 8 < w)\n  "
+             + K3_LAST_PERMUTE.split("\n")[0] + "\n    else\n"
+             "      permute_head4<PARTIAL_UNROLL>(s);\n  }"),
+            (K3_SPONGE, K3_HEAD4 + K3_SPONGE)]
+    return (f"{k}_{launch}_t{t}_b{b}_partial{partial}"
+            + ("_head4" if head4 else ""),
+            {"threads": t, "min_blocks": b, "partial_unroll": partial,
+             "launch": launch, "head4": head4}, source, subs)
+
+
+# K3 and K8: the sized launch at other launch bounds and unrolling (the
+# built kernels: sized, 1024 x 1, partial rounds a loop), in blocks of
+# whole warps, with and without a lane loop, on one round of blocks, and
+# fixed launches (1024 x 1 is K7's; 512 x 2 has K1's block size at K7's 64
+# registers); K3 also with the short last permutation.
+CHAIN_SHAPES = [(1024, 1, 1, "sized"), (768, 1, 1, "sized"),
+                (512, 1, 1, "sized"), (1024, 1, 2, "sized"),
+                (512, 2, 1, "sized"), (1024, 1, 1, "sized32"),
+                (1024, 1, 1, "single"), (1024, 1, 1, "loop"),
+                (1024, 1, 1, "persistent"), (1024, 1, 1, "resident"),
+                (1024, 1, 1, "fixed"), (512, 2, 1, "fixed"),
+                (512, 1, 1, "fixed"), (128, 4, 1, "fixed")]
+K3_VARIANTS = [chain_variant("k3", *v) for v in CHAIN_SHAPES] + [
+    chain_variant("k3", 1024, 1, head4=True)]
+K8_VARIANTS = [chain_variant("k8", *v) for v in CHAIN_SHAPES]
+# K3 at the GL n=2^11 drive's step leaves (B=1024) and at B=4096; K8 at the
+# SOL bench's chained and mid probes: (w or chain, N)
+K3_SIZES = ((32, 172_032), (32, 688_128))
+K8_SIZES = ((64, 1 << 18), (4, 1 << 20))
+
+
+def census(lib):
+    """(Counter of SASS opcodes in the library `lib`, its loops, its
+    instructions): each loop (a backward branch) as {"kernel", "start",
+    "end", "instructions", "top"}: the instructions from the branch target
+    to the branch, and the five commonest opcodes among them; the
+    instructions as text (predicate, opcode and operands), in order."""
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
     ops = collections.Counter()
-    code, loops, kernel = [], [], None
+    code, loops, kernel, text = [], [], None, []
     for line in sass.splitlines():
         f = re.match(r"\s*Function : (\S+)", line)
         if f:
             kernel, code = f.group(1), []
+            text.append(line.strip())
         m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)"
                      r"\s*([^;]*)", line)
         if not m:
@@ -290,13 +440,14 @@ def census(name):
         addr, op = int(m.group(1), 16), m.group(3)
         ops[op] += 1
         code.append((addr, op))
+        text.append(f"{m.group(2) or ''}{op} {m.group(4)}".strip())
         b = re.match(r"(0x[0-9a-f]+)", m.group(4)) if op == "BRA" else None
         if b and int(b.group(1), 16) < addr:
             body = [o for a, o in code if a >= int(b.group(1), 16)]
             loops.append({"kernel": kernel, "start": b.group(1),
                           "end": hex(addr), "instructions": len(body),
                           "top": collections.Counter(body).most_common(5)})
-    return ops, loops
+    return ops, loops, text
 
 
 def variant_source(tag, source, subs, base=None, out=OUT):
@@ -362,10 +513,10 @@ def time_ab(first, second):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(OUT, "tune.json"))
-    ap.add_argument("--sweeps", default="k1,k2,k7,floor",
-                    help="comma-separated subset of k1,k2,k7,floor")
+    ap.add_argument("--sweeps", default="k1,k2,k3,k7,k8,floor",
+                    help="comma-separated subset of k1,k2,k3,k7,k8,floor")
     ap.add_argument("--parent", default=None,
-                    help="directory of the sources to compare K7 with")
+                    help="directory of the sources to compare with")
     args = ap.parse_args()
     sweeps = set(args.sweeps.split(","))
     if not torch.cuda.is_available():
@@ -373,10 +524,13 @@ def main():
     os.makedirs(OUT, exist_ok=True)
     _build.build_all()
     report = {"card": cs.torch_sol_bench.card_line(), "census": {},
-              "built": [], "k1": [], "k2": [], "k7": [], "floor": {}}
+              "built": [], "k1": [], "k2": [], "k3": [], "k7": [], "k8": [],
+              "floor": {}}
     print(f"device: {report['card']}", flush=True)
+    texts = _build.header_texts()
+    sass = {}
     for name in GL_KERNELS:
-        ops, loops = census(name)
+        ops, loops, sass[name] = census(_build.lib_path(name, texts))
         report["census"][name] = {"ops": dict(ops), "loops": loops}
         print(f"census {name}: {sum(ops.values())} instructions; "
               f"{ops.most_common(14)}", flush=True)
@@ -386,13 +540,23 @@ def main():
                   f"{loop['top']}", flush=True)
     variants = ((K1_VARIANTS if "k1" in sweeps else [])
                 + (K2_VARIANTS if "k2" in sweeps else [])
-                + (K7_VARIANTS if "k7" in sweeps else []))
-    if "k7" in sweeps and args.parent:
-        variants.append(("k7_parent", {"parent": args.parent}, "permute.cu",
-                         {}, parent_csrc(args.parent)))
+                + (K3_VARIANTS if "k3" in sweeps else [])
+                + (K7_VARIANTS if "k7" in sweeps else [])
+                + (K8_VARIANTS if "k8" in sweeps else []))
+    if args.parent:       # the parent's build of every GL kernel
+        variants += [(f"parent_{name}", {"parent": args.parent},
+                      _build.KERNELS[name][0], {}, parent_csrc(args.parent))
+                     for name in GL_KERNELS]
     built = build_variants(variants)
     for tag, (_, ptxas) in built.items():
         print(f"ptxas {tag}: {ptxas}", flush=True)
+    if args.parent:
+        for name in GL_KERNELS:
+            lib = os.path.join(OUT, f"parent_{name}", f"libparent_{name}.so")
+            same = census(lib)[2] == sass[name]
+            report["census"][name]["sass_equal_parent"] = same
+            print(f"census {name}: SASS equal to the parent's: {same}",
+                  flush=True)
 
     rng = np.random.default_rng(cs.SEED)
     node, sib, idx, active = cs.path_inputs(
@@ -411,6 +575,16 @@ def main():
         x[:, ::1021] |= np.uint64(0xFFFFFFFF00000000)
         k7_inputs.append(gl.from_u64(x, cs.DEVICE))
     want7 = [pk.permute_planes(x) for x in k7_inputs]
+    # K3: (w, leaves) planes, some words >= p; K8: (12, N) states
+    k3_inputs = []
+    for w, n in K3_SIZES if "k3" in sweeps else ():
+        x = cs.rand_gl(rng, (w, n))
+        x[:, ::1021] |= np.uint64(0xFFFFFFFF00000000)
+        k3_inputs.append(gl.from_u64(x, cs.DEVICE))
+    want3 = [mk.hash_no_pad_planes(x) for x in k3_inputs]
+    k8_inputs = [(gl.from_u64(cs.rand_gl(rng, (12, n)), cs.DEVICE), chain)
+                 for chain, n in (K8_SIZES if "k8" in sweeps else ())]
+    want8 = [pk.permute_planes_chained(x, c) for x, c in k8_inputs]
     stream = torch.cuda.current_stream().cuda_stream
 
     def k1_call(fn):
@@ -431,6 +605,36 @@ def main():
         return out, lambda: fn(x.data_ptr(), out.data_ptr(), x.shape[1],
                                stream)
 
+    def k3_call(fn, x):
+        out = torch.empty((4, x.shape[1]), dtype=x.dtype, device=x.device)
+        return out, lambda: fn(x.data_ptr(), out.data_ptr(), x.shape[0],
+                               x.shape[1], stream)
+
+    def k8_call(fn, x, chain):
+        out = torch.empty_like(x)
+        return out, lambda: fn(x.data_ptr(), out.data_ptr(), x.shape[1],
+                               chain, stream)
+
+    # per sweep: (kernel name, [(label, the wrapper's arguments, the built
+    # kernel's output)], call maker, the wrapper)
+    chains = {
+        "k3": ("leaf_sponge",
+               [(f"w{x.shape[0]}_N{x.shape[1]}", (x,), y)
+                for x, y in zip(k3_inputs, want3)],
+               k3_call, mk.hash_no_pad_planes),
+        "k7": ("permute",
+               [(f"N{x.shape[1]}", (x,), y) for x, y in zip(k7_inputs, want7)],
+               k7_call, pk.permute_planes),
+        "k8": ("permute_chained",
+               [(f"chain{c}_N{x.shape[1]}", (x, c), y)
+                for (x, c), y in zip(k8_inputs, want8)],
+               k8_call, pk.permute_planes_chained)}
+
+    def lib_fn(lib, name):
+        fn = getattr(lib, _build.KERNELS[name][1])
+        fn.argtypes = list(_build.KERNELS[name][2])
+        return fn
+
     def time_built():
         row = {"K1": cs.cuda_ms(
             lambda: mk.verify_paths_planes(node, sib, idx, active), 5)}
@@ -439,29 +643,28 @@ def main():
         report["built"].append(row)
         print(f"built: {row}", flush=True)
 
-    def k7_parent_ab(order):
-        """The parent's K7 beside the built one at each size, in turn."""
-        lib, _ = built["k7_parent"]
-        fn = lib.launch_permute
-        fn.argtypes = list(_build.KERNELS["permute"][2])
-        for x, want in zip(k7_inputs, want7):
-            out, call = k7_call(fn, x)
-            pair = [("parent", call), ("built",
-                                       lambda x=x: pk.permute_planes(x))]
-            times = time_ab(*(pair if order else pair[::-1]))
-            row = {"tag": "k7_parent_vs_built", "N": x.shape[1], **times,
-                   "equal": bool(torch.equal(out, want))}
-            report["k7"].append(row)
-            print(f"K7 {row}", flush=True)
+    def parent_ab(order):
+        """The parent's K3, K7 and K8 beside the built ones at each size, in
+        turn: parent, built, built, parent (or the reverse)."""
+        for sweep, (name, cases, call, wrapper) in chains.items():
+            if sweep not in sweeps:
+                continue
+            fn = lib_fn(built[f"parent_{name}"][0], name)
+            for label, args_, want in cases:
+                out, run = call(fn, *args_)
+                pair = [("parent", run), ("built", lambda: wrapper(*args_))]
+                times = time_ab(*(pair if order else pair[::-1]))
+                row = {"tag": f"{sweep}_parent_vs_built", "size": label,
+                       **times, "equal": bool(torch.equal(out, want))}
+                report[sweep].append(row)
+                print(f"{sweep.upper()} {row}", flush=True)
 
     time_built()
-    if "k7" in sweeps and args.parent:
-        k7_parent_ab(True)
+    if args.parent:
+        parent_ab(True)
     for tag, params, _, _ in K1_VARIANTS if "k1" in sweeps else ():
         lib, ptxas = built[tag]
-        fn = lib.launch_merkle_path
-        fn.argtypes = list(_build.KERNELS["merkle_path"][2])
-        out, call = k1_call(fn)
+        out, call = k1_call(lib_fn(lib, "merkle_path"))
         ms = cs.cuda_ms(call, 5)
         row = {"tag": tag, **params, "ms": ms,
                "equal": bool(torch.equal(out, want1)), "ptxas": ptxas}
@@ -469,8 +672,7 @@ def main():
         print(f"K1 {row}", flush=True)
     for tag, params, _, _ in K2_VARIANTS if "k2" in sweeps else ():
         lib, ptxas = built[tag]
-        fn = lib.launch_transcript
-        fn.argtypes = list(_build.KERNELS["transcript"][2])
+        fn = lib_fn(lib, "transcript")
         row = {"tag": tag, **params, "ptxas": ptxas}
         for (c, m), want, b in zip(k2_inputs, want2, (1024, 4096, 2048)):
             out, call = k2_call(fn, c, m)
@@ -482,25 +684,29 @@ def main():
         row["equal_B1"] = bool(torch.equal(out, want_b1))
         report["k2"].append(row)
         print(f"K2 {row}", flush=True)
-    for tag, params, _, _ in K7_VARIANTS if "k7" in sweeps else ():
-        lib, ptxas = built[tag]
-        fn = lib.launch_permute
-        fn.argtypes = list(_build.KERNELS["permute"][2])
-        row = {"tag": tag, **params, "ptxas": ptxas}
-        for x, want in zip(k7_inputs, want7):
-            out, call = k7_call(fn, x)
-            row[f"ms_N{x.shape[1]}"] = cs.cuda_ms(call, 5)
-            row[f"equal_N{x.shape[1]}"] = bool(torch.equal(out, want))
-        report["k7"].append(row)
-        print(f"K7 {row}", flush=True)
+    for sweep, table in (("k3", K3_VARIANTS), ("k7", K7_VARIANTS),
+                         ("k8", K8_VARIANTS)):
+        if sweep not in sweeps:
+            continue
+        name, cases, call, _ = chains[sweep]
+        for tag, params, _, _ in table:
+            lib, ptxas = built[tag]
+            fn = lib_fn(lib, name)
+            row = {"tag": tag, **params, "ptxas": ptxas}
+            for label, args_, want in cases:
+                out, run = call(fn, *args_)
+                row[f"ms_{label}"] = cs.cuda_ms(run, 5)
+                row[f"equal_{label}"] = bool(torch.equal(out, want))
+            report[sweep].append(row)
+            print(f"{sweep.upper()} {row}", flush=True)
     if "floor" in sweeps:
         one = gl.from_u64(cs.rand_gl(rng, (12, 1)), cs.DEVICE)
         ms8 = cs.cuda_ms(lambda: pk.permute_planes_chained(one, 64), 5)
         report["floor"] = {"K8 N=1 chain=64 ms": ms8,
                            "one-thread permutation us": ms8 / 64 * 1e3}
         print(f"floor: {report['floor']}", flush=True)
-    if "k7" in sweeps and args.parent:
-        k7_parent_ab(False)
+    if args.parent:
+        parent_ab(False)
     time_built()
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
