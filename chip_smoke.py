@@ -14,8 +14,10 @@ Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
      13 and 4), K6 (the BN254 permutation), K7 (the bulk Goldilocks
      permutation, 2^17 and 2^21 states; also compared at 2^17 + 1),
      K8 (64 chained Goldilocks permutations on 2^18 states; also compared
-     at chain 0 and 1 on 2^18 + 1) and K9 (the
-     BN254 component probes, 2^16 lanes, chain 64), each against its plain
+     at chain 0 and 1 on 2^18 + 1) and K9 (every run of
+     `tools/torch_bn254_micro.py`: the probes of the BN254 body's functions
+     at 2^16 lanes, and the u32, f32 and wide multiplier probes at 1, 4 and
+     8 lanes a thread on 2^20 lanes, chain 64), each against its plain
      PyTorch version on the same seeded inputs at the shapes of the main
      paths; the results must be equal (tolerance 0: these are integers, and
      the f32 probe's values are integers below 2^17).  Both are timed on the
@@ -30,8 +32,10 @@ Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
      partial last group) and N = 1024.  K1's, K2's, K7's and the extra K3
      and K8 comparisons' first lanes, and K5's first compared lanes, hold
      the Goldilocks edge values (0, 1, p - 1, p - 2 and u64 values >= p).
-     K9's whole-permutation probe is compared at a chain of 2 and timed at
-     the full chain;
+     K9's two whole-permutation probes are compared at a chain of 2 and
+     timed at the full chain, its multiplier probes compared on every lane;
+     each K9 part records its launch's threads and blocks and its kernel
+     instance's registers and spill;
   4. the drives, each with every kernel's launch count set to 0 just before
      it and read just after; every kernel of the drive must have launched:
      a. through `build_verifier` on a tiled fixture: every verdict must be
@@ -49,7 +53,10 @@ Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
      c. SOL probes: `tools/torch_sol_bench.py:measure_poseidon_sol` (K7, K8,
         K1), each probe's M perm/s and share of its bound;
      d. BN254 component probes: `tools/torch_bn254_micro.py:measure` (K9),
-        ns per iteration per lane of each probe;
+        ns per iteration per lane of each run, each run's time beside its
+        time in phase 3, the sum of the rounds beside the permutation, the
+        partial round's x2/x1 ratio, and each multiplier run's multiplies a
+        clock an SM;
   5. one JSON line listing the kernels (launches per drive, times, the
      least time the card could take for the same work), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -62,7 +69,6 @@ Usage: python3 chip_smoke.py        (needs one CUDA card and nvcc)
 import json
 import math
 import os
-import statistics
 import sys
 import time
 
@@ -87,6 +93,7 @@ from halo2_plonky2_verifier_tpu_torch.utils.roofline import (BN_MONT_MUL,
                                                             BN_REDC,
                                                             GL_PERM_MULS,
                                                             bound)
+from halo2_plonky2_verifier_tpu_torch.utils.timing import cuda_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.append(os.path.join(REPO, "tools"))
@@ -108,28 +115,6 @@ WRAPPERS = {"K1": mk.verify_paths_planes, "K2": tk.run_steps_planes,
 
 def log(msg):
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps, warm_up=True):
-    """Median milliseconds of one fn() on the card over `reps` calls, after
-    one warm-up call unless `warm_up` is False.  Each call sits between its
-    own pair of CUDA events, and all are queued behind a 10 ms sleep of the
-    card, so a host that is held up while it enqueues them (its cores may be
-    shared) adds no idle time inside a pair; the median, so that one call
-    held up all the same does not set the result (as
-    tools/torch_sol_bench.py:time_chain)."""
-    if warm_up:
-        fn()
-    torch.cuda.synchronize()
-    pairs = [(torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda._sleep(20_000_000)
-    for start, end in pairs:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
 def rand_gl(rng, shape):
@@ -430,27 +415,42 @@ def check_kernels(rng, B=1024, Q=84):
          (lambda c=c: pk.permute_planes_chained_plain(st8r, c)),
          f"chain={c} N={n8 + 1}") for c in (0, 1)]
 
-    # K9: every run of tools/torch_bn254_micro.py at its lanes and chain;
-    # the plain version on 4096 lanes, the whole permutation compared at a
-    # chain of 2 (one plain BN254 permutation takes about half a second on
-    # the card) and timed at the full chain
+    # K9: every run of tools/torch_bn254_micro.py at its lanes and chain.
+    # The Fr probes' plain version runs on 4096 lanes, the whole
+    # permutation's (both forms) at a chain of 2 (one plain BN254
+    # permutation takes about half a second on the card), the kernel timed
+    # at the full chain; the multiplier probes are compared on every lane
+    # at the full chain.  Each part records its launch (threads, blocks)
+    # and its kernel instance's registers and spill (-Xptxas -v).
     lanes9, chain9 = torch_bn254_micro.LANES, torch_bn254_micro.CHAIN
     pick9 = sample_lanes(lanes9, 1, 4096)
+    usage9 = torch_bn254_micro.built_usage()
     cases["K9"] = []
-    for name, threads in torch_bn254_micro.RUNS:
-        x = torch_bn254_micro.probe_input(name, lanes9, rng, DEVICE)
-        xs = x[:, pick9].contiguous()
-        c = 2 if name == "permute" else chain9
+    for name, threads, k in torch_bn254_micro.RUNS:
+        n9 = torch_bn254_micro.run_lanes(name)
+        x = torch_bn254_micro.probe_input(name, n9, rng, DEVICE)
+        mul = name in mk9.MULTIPLIERS
+        pick = None if mul else pick9
+        xs = x if mul else x[:, pick9].contiguous()
+        c = 2 if name.startswith("permute") else chain9
+        reg = usage9.get(torch_bn254_micro.kernel_instance(name, threads, k),
+                         {})
+
+        def launch9(name=name, threads=threads, k=k, reg=reg):
+            t, b = mk9.run_probe.last_launch
+            return {"probe": name, "threads": threads, "k": k,
+                    "launch_threads": t, "launch_blocks": b, **reg}
+
         cases["K9"].append((
-            (lambda x=x, name=name, c=c, t=threads:
-             mk9.run_probe(name, x, c, t)),
+            (lambda x=x, name=name, c=c, t=threads, k=k:
+             mk9.run_probe(name, x, c, t, k)),
             (lambda xs=xs, name=name, c=c:
-             mk9.run_probe_plain(name, xs, c)), pick9,
-            f"{name} threads={threads} N={lanes9} chain={chain9} (plain on "
-            f"N={pick9.numel()}, chain={c})",
-            torch_bn254_micro.probe_bound(name, lanes9, chain9),
-            (lambda x=x, name=name, t=threads:
-             mk9.run_probe(name, x, chain9, t))))
+             mk9.run_probe_plain(name, xs, c)), pick,
+            f"{name} threads={threads} k={k} N={n9} chain={chain9} (plain "
+            f"on N={xs.shape[1]}, chain={c})",
+            torch_bn254_micro.probe_bound(name, n9, chain9),
+            (lambda x=x, name=name, t=threads, k=k:
+             mk9.run_probe(name, x, chain9, t, k)), launch9))
 
     for name, parts in checks.items():
         for kernel, plain, what in parts:
@@ -467,7 +467,7 @@ def check_kernels(rng, B=1024, Q=84):
         stats = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                  "bound_ms": 0.0, "bound_by": "operations",
                  "library_ms": None, "parts": []}
-        for kernel, plain, pick, what, (b_ms, b_by), timed in parts:
+        for kernel, plain, pick, what, (b_ms, b_by), timed, *extra in parts:
             got = kernel()
             want = plain()
             torch.cuda.synchronize()
@@ -478,6 +478,7 @@ def check_kernels(rng, B=1024, Q=84):
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version ({what}): max_abs_err {err}")
             ms = cuda_ms(timed or kernel, 5)
+            launch = extra[0]() if extra else {}    # of the timed launches
             plain_ms = cuda_ms(plain, 1, warm_up=False)    # it just ran
             log(f"kernel {name} ({what}): equal to plain; {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -487,7 +488,7 @@ def check_kernels(rng, B=1024, Q=84):
             stats["bound_ms"] += b_ms
             stats["parts"].append({"what": what, "ms": ms,
                                    "plain_ms": plain_ms, "bound_ms": b_ms,
-                                   "bound_by": b_by})
+                                   "bound_by": b_by, **launch})
         stats["bound_by"] = max(stats["parts"],
                                 key=lambda p: p["bound_ms"])["bound_by"]
         out[name] = stats
@@ -696,17 +697,27 @@ def drive_sol():
     return counts, time.perf_counter() - t0, rows
 
 
-def drive_bn254_micro():
+def drive_bn254_micro(checked):
     """`tools/torch_bn254_micro.py:measure` on the card (K9); returns the
-    launch counts, the wall time and the probes' rows."""
+    launch counts, the wall time and the probes' rows and summary, each
+    row's time also as a ratio to its time in the kernel check (`checked`:
+    K9's parts from `check_kernels`), which the two must share."""
     t0 = time.perf_counter()
-    counts, rows = counted(
+    counts, (rows, summary) = counted(
         "BN254 component probes",
         lambda: torch_bn254_micro.measure(device=DEVICE, log=log), ("K9",))
     if not all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows):
         raise AssertionError(f"BN254 component probes: times {rows}")
-    log(f"BN254 component probes: launches {counts}")
-    return counts, time.perf_counter() - t0, rows
+    check_ms = {(p["probe"], p["threads"], p["k"]): p["ms"] for p in checked}
+    for r in rows:
+        r["over_check"] = r["ms"] / check_ms[r["probe"], r["threads"], r["k"]]
+    worst = max(rows, key=lambda r: abs(r["over_check"] - 1))
+    log(f"BN254 component probes: launches {counts}; drive / check time "
+        f"{min(r['over_check'] for r in rows):.3f}-"
+        f"{max(r['over_check'] for r in rows):.3f} (furthest: "
+        f"{worst['probe']} threads {worst['threads']} k {worst['k']})")
+    return counts, time.perf_counter() - t0, {"runs": rows,
+                                              "summary": summary}
 
 
 def main():
@@ -742,7 +753,7 @@ def main():
         rng, device_line)
     counts["SOL probes"], walls["SOL probes"], sol_rows = drive_sol()
     (counts["BN254 component probes"], walls["BN254 component probes"],
-     micro_rows) = drive_bn254_micro()
+     micro_rows) = drive_bn254_micro(kstats["K9"]["parts"])
 
     # 5. the kernels line, then the contract's last line
     src = "halo2_plonky2_verifier_tpu_torch/ops/csrc/"

@@ -54,7 +54,7 @@ KERNELS = {
                         (_P, _P, ctypes.c_longlong, ctypes.c_int, _P)),
     "bn254_micro": ("bn254_micro.cu", "launch_bn254_micro",
                     (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                     ctypes.c_int, _P)),
+                     ctypes.c_int, ctypes.c_int, _P, _P)),
 }
 
 _loaded = {}        # kernel name -> ctypes function

@@ -30,7 +30,9 @@
 // flag instead of being found by comparisons.  (Rows as chains of
 // mad.lo.cc / madc.hi.cc lower to two IMADs and two adds a partial product,
 // and ran slower.)  A product is 16 rows.  dot4 feeds the four products of
-// a matrix row into one window and reduces once.
+// a matrix row into one window and reduces once.  The S-box squares with
+// mont_sqr: the square's 36 distinct products, then REDC of its low half
+// (K4 and K9's permutation 5-7% faster than with mont_mul, PERF.md §6).
 //
 // Lazy values: p < R / 5.29, so a product with both factors below 2p ends
 // below p + 4p^2 / R < 1.76p without a final subtraction.  Values stay
@@ -41,8 +43,8 @@
 //
 // Registers: one thread's state is 32 limbs; the widest point is the dense
 // mix (old and new state, 64 limbs, and the window).  K4 runs under
-// __launch_bounds__(128, 4): 128 registers a thread (a few bytes spill)
-// and 16 resident warps an SM; K5's sponge in 256-thread blocks, where the
+// __launch_bounds__(128, 4): 128 registers a thread (60 bytes spill) and
+// 16 resident warps an SM; K5's sponge in 256-thread blocks, where the
 // compiler keeps 128 registers without a spill.
 //
 // permute_group4 is the same schedule spread over four lanes of a warp, one
@@ -189,6 +191,61 @@ __device__ __forceinline__ void add(uint32_t x[NL], const uint32_t* y) {
   x[NL - 1] = addc(x[NL - 1], y[NL - 1]);
 }
 
+// r = a^2 / R mod p, lazily: r <= a^2 / R + p, for a < 4p (r may alias
+// a).  The square's 36 distinct products, where mont_mul takes 64: the 28
+// off the diagonal once (row i: a_i a_j for j > i, into T[i + j]; row i's
+// top limb T[i + 8] is still 0 when it starts), then doubled, then the 8
+// squares on the diagonal, each step's carries on the flag, give T = a^2
+// in 16 limbs.  The eight reduction steps of from_mont take the low half L
+// to u = (L + m p) / R <= p, and r = (T + m p) / R = u + H, H the high
+// half: for a < 4p, H < 16 p^2 / R < 3.03p, so r < 2^256.
+__device__ __forceinline__ void mont_sqr(const uint32_t* a, uint32_t r[NL]) {
+  uint32_t T[2 * NL];
+#pragma unroll
+  for (int j = 0; j < 2 * NL; ++j) T[j] = 0;
+#pragma unroll
+  for (int i = 0; i < NL - 1; ++i) {
+    uint64_t p[NL];
+#pragma unroll
+    for (int j = i + 1; j < NL; ++j) p[j] = (uint64_t)a[i] * a[j] + T[i + j];
+    T[2 * i + 1] = (uint32_t)p[i + 1];
+    if (i + 2 < NL) {
+      T[2 * i + 2] = add_cc((uint32_t)p[i + 2], (uint32_t)(p[i + 1] >> 32));
+#pragma unroll
+      for (int j = i + 3; j < NL; ++j)
+        T[i + j] = addc_cc((uint32_t)p[j], (uint32_t)(p[j - 1] >> 32));
+      T[i + NL] = addc(0, (uint32_t)(p[NL - 1] >> 32));
+    } else {
+      T[i + NL] = (uint32_t)(p[NL - 1] >> 32);
+    }
+  }
+  T[1] = add_cc(T[1], T[1]);                // the sum < a^2 / 2: no carry out
+#pragma unroll
+  for (int j = 2; j < 2 * NL - 1; ++j) T[j] = addc_cc(T[j], T[j]);
+  T[2 * NL - 1] = addc(0, 0);
+  uint64_t d[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) d[i] = (uint64_t)a[i] * a[i];
+  T[0] = (uint32_t)d[0];
+  T[1] = add_cc(T[1], (uint32_t)(d[0] >> 32));
+#pragma unroll
+  for (int i = 1; i < NL - 1; ++i) {
+    T[2 * i] = addc_cc(T[2 * i], (uint32_t)d[i]);
+    T[2 * i + 1] = addc_cc(T[2 * i + 1], (uint32_t)(d[i] >> 32));
+  }
+  T[2 * NL - 2] = addc_cc(T[2 * NL - 2], (uint32_t)d[NL - 1]);
+  T[2 * NL - 1] = addc(T[2 * NL - 1], (uint32_t)(d[NL - 1] >> 32));
+  uint32_t A[NL + 1];
+#pragma unroll
+  for (int j = 0; j < NL; ++j) A[j] = T[j];
+  A[NL] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) redc_step(A);
+#pragma unroll
+  for (int j = 0; j < NL; ++j) r[j] = A[j];
+  add(r, &T[NL]);
+}
+
 // x <- x - k if x >= k (k is BN_P or BN_2P): x < 2k becomes x < k, and
 // x < 3k becomes x < 2k.
 __device__ __forceinline__ void reduce(uint32_t x[NL], const uint32_t* k) {
@@ -223,8 +280,8 @@ __device__ __forceinline__ void from_mont(uint32_t x[NL]) {
 // x <- x^5 for x < 2p: x^2 < 1.76p, x^4 < 1.59p, x^5 < 1.61p.
 __device__ __forceinline__ void sbox(uint32_t x[NL]) {
   uint32_t x2[NL], x4[NL];
-  mont_mul(x, x, x2);
-  mont_mul(x2, x2, x4);
+  mont_sqr(x, x2);
+  mont_sqr(x2, x4);
   mont_mul(x4, x, x);
 }
 

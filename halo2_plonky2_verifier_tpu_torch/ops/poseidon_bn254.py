@@ -16,7 +16,9 @@ schedule (`constants/poseidon_bn254_opt.py`) that the kernels' body
 (`csrc/poseidon_bn254.cuh`) runs, from the same tables: the CPU check of
 that schedule and its constants.  The plain versions of the kernels call the
 naive `permute_mont_limbs`, so the card's comparison does not rest on the
-optimized schedule.
+optimized schedule; only K9's round probes, which time one round of that
+schedule, are held against its rounds (`full_round_opt_limbs`,
+`partial_round_opt_limbs`).
 """
 
 import functools
@@ -54,7 +56,8 @@ def _mds():
     return tuple(tuple(row) for row in mont_tables()[1])
 
 
-def _sbox5(x):
+def sbox5_limbs(x):
+    """x^5 on (..., 16) canonical Montgomery limbs."""
     x2 = fr.mont_mul_limbs(x, x)
     x4 = fr.mont_mul_limbs(x2, x2)
     return fr.mont_mul_limbs(x4, x)
@@ -72,9 +75,9 @@ def round_mont_limbs(state, r):
     rounds, element 0's in the partial rounds between."""
     state = fr.add_mod_limbs(state, _round_constants(state.device)[r])
     if r < HALF or r >= ROUNDS - HALF:
-        state = _sbox5(state)
+        state = sbox5_limbs(state)
     else:
-        state = torch.cat([_sbox5(state[..., :1, :]), state[..., 1:, :]],
+        state = torch.cat([sbox5_limbs(state[..., :1, :]), state[..., 1:, :]],
                           dim=-2)
     return mix_mont_limbs(state)
 
@@ -103,19 +106,21 @@ def _opt_limbs(key, device):
     return fr.to_limbs(fr.from_ints(_opt_mont_tables()[key], device))
 
 
-def _full_round_opt(state, r):
+def full_round_opt_limbs(state, r):
+    """Full round r of the optimized schedule: constants before and after
+    every element's S-box, then round r's dense mix."""
     t = _opt_mont_tables()
     state = fr.add_mod_limbs(state, _opt_limbs("pre", state.device)[r])
-    state = _sbox5(state)
+    state = sbox5_limbs(state)
     state = fr.add_mod_limbs(state, _opt_limbs("post", state.device)[r])
     return fr.mont_matvec_limbs(t["mix"][r], state)
 
 
-def _partial_round_opt(state, i):
-    """S-box and scalar constant on element 0, then the sparse mix:
+def partial_round_opt_limbs(state, i):
+    """Partial round i of the optimized schedule: S-box and scalar constant on element 0, then the sparse mix:
     new0 = row0 . s, new_k = s_k + col0[k-1] s0."""
     t = _opt_mont_tables()
-    s0 = fr.add_mod_limbs(_sbox5(state[..., :1, :]),
+    s0 = fr.add_mod_limbs(sbox5_limbs(state[..., :1, :]),
                           _opt_limbs("gamma", state.device)[i])
     new0 = fr.mont_matvec_limbs((t["row0"][i],),
                                 torch.cat([s0, state[..., 1:, :]], dim=-2))
@@ -129,11 +134,11 @@ def permute_mont_limbs_opt(state):
     optimized schedule: HALF full rounds, PARTIAL_ROUNDS partial rounds,
     HALF full rounds.  Equal to `permute_mont_limbs`."""
     for r in range(HALF):
-        state = _full_round_opt(state, r)
+        state = full_round_opt_limbs(state, r)
     for i in range(PARTIAL_ROUNDS):
-        state = _partial_round_opt(state, i)
+        state = partial_round_opt_limbs(state, i)
     for r in range(HALF, FULL_ROUNDS):
-        state = _full_round_opt(state, r)
+        state = full_round_opt_limbs(state, r)
     return state
 
 

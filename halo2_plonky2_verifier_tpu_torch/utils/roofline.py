@@ -5,7 +5,10 @@ outputs written once) over the card's 3.35 TB/s, and its operations over the
 card's peak rate for their type: 132 SMs x 64 32-bit IMAD per clock
 (compute capability 9.0) x 1.98 GHz boost for integer multiplies, 132 SMs x
 128 FP32 lanes per clock x 1.98 GHz (67 TFLOP/s counting an FMA as two) for
-f32 multiplies.
+f32 multiplies.  An IMAD.WIDE.U32 (a 32 x 32 -> 64-bit product with a
+64-bit addend, what the BN254 body's products are made of) counts as one
+of the 64; `tools/torch_bn254_micro.py`'s wide_mul16 probe measures the
+rate the card gives for it, which these published peaks do not change.
 
 A multiply is one 32 x 32 -> 64-bit partial product of the schoolbook
 method on 32-bit words (a square of n words takes n(n+1)/2), and each
@@ -29,8 +32,10 @@ Used by `chip_smoke.py`, `tools/torch_sol_bench.py` and
 """
 
 HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 132 * 64 * 1.98e9
-F32_MUL_PER_S = 132 * 128 * 1.98e9
+SMS, BOOST_HZ = 132, 1.98e9
+IMAD_PER_CLOCK_SM, F32_MUL_PER_CLOCK_SM = 64, 128
+IMAD_PER_S = SMS * IMAD_PER_CLOCK_SM * BOOST_HZ
+F32_MUL_PER_S = SMS * F32_MUL_PER_CLOCK_SM * BOOST_HZ
 
 GL_MUL, GL_SQR, GL_SMALL = 4, 3, 2
 GL_SBOX = 2 * GL_SQR + 2 * GL_MUL
@@ -41,8 +46,9 @@ BN_MUL, BN_SQR, BN_REDC = 64, 36, 72
 BN_MONT_MUL = BN_MUL + BN_REDC
 BN_SBOX = 2 * (BN_SQR + BN_REDC) + BN_MONT_MUL
 BN_MIX = 4 * (4 * BN_MUL + BN_REDC)           # the dense mix, one REDC a row
-BN_PERM_MULS = (8 * (4 * BN_SBOX + BN_MIX)
-                + 56 * (BN_SBOX + 7 * BN_MUL + 4 * BN_REDC))        # 82,688
+BN_FULL_ROUND = 4 * BN_SBOX + BN_MIX
+BN_PARTIAL_ROUND = BN_SBOX + 7 * BN_MUL + 4 * BN_REDC
+BN_PERM_MULS = 8 * BN_FULL_ROUND + 56 * BN_PARTIAL_ROUND             # 82,688
 
 
 def bound(nbytes, ops, ops_per_s=IMAD_PER_S):

@@ -5,6 +5,7 @@
 // Reads "mode n" and then n records of Fr values (four u64 words each, in
 // decimal) on stdin; writes each result's words on a line of stdout.
 //   mont_mul   a b -> mont_mul(a, b), lazy
+//   mont_sqr   a   -> mont_sqr(a), lazy
 //   to_mont    x   -> to_mont(x), lazy
 //   from_mont  x   -> from_mont(x), canonical
 //   permute    s0 s1 s2 s3 -> permute, then canonical (one thread, K4/K5/K9)
@@ -102,6 +103,9 @@ int main() {
       rd(a); rd(b);
       bn::mont_mul(a, b, r);
       wr(r);
+    } else if (m == "mont_sqr") {
+      uint32_t a[bn::NL];
+      rd(a); bn::mont_sqr(a, a); wr(a);
     } else if (m == "to_mont") {
       uint32_t a[bn::NL];
       rd(a); bn::to_mont(a); wr(a);

@@ -185,7 +185,8 @@ def test_host_body_permutation_equals_plain(host_body, mode):
 
 def test_host_body_field_ops(host_body):
     """mont_mul keeps its lazy bound (r < a b / R + p, a < 4p, any 256-bit
-    b), to_mont takes any 256-bit value to below 2p, from_mont is
+    b), mont_sqr its own (r <= a^2 / R + p, a < 4p; the S-box's squarings),
+    to_mont takes any 256-bit value to below 2p, from_mont is
     canonical."""
     rng = np.random.default_rng(13)
     wide = list(EDGE) + [P, P + 1, 2 * P, 4 * P - 1, R - 1]
@@ -197,6 +198,11 @@ def test_host_body_field_ops(host_body):
     r_inv = pow(R, -1, P)
     for (a, b), (r,) in zip(pairs, host_body("mont_mul", pairs)):
         assert r % P == a * b * r_inv % P and r < a * b // R + P + 1
+    squares = [[a % (4 * P)] for a in rand] + [
+        [a] for a in wide + [2 * P - 1, 2 * P + 1, 3 * P, R // 5]
+        if a < 4 * P]
+    for (a,), (r,) in zip(squares, host_body("mont_sqr", squares)):
+        assert r % P == a * a * r_inv % P and r <= a * a // R + P
     singles = [[v] for v in wide + rand]
     for (a,), (r,) in zip(singles, host_body("to_mont", singles)):
         assert r % P == a * R % P and r < 2 * P

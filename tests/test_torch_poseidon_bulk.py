@@ -27,6 +27,8 @@ from halo2_plonky2_verifier_tpu.ops import poseidon as jpos
 from halo2_plonky2_verifier_tpu.refimpl import poseidon as ref
 from halo2_plonky2_verifier_tpu.refimpl import poseidon_bn254 as bn_ref
 from halo2_plonky2_verifier_tpu.utils.compile import smart_jit
+from halo2_plonky2_verifier_tpu_torch.constants import poseidon_bn254_opt as tpo
+from halo2_plonky2_verifier_tpu_torch.ops import _build
 from halo2_plonky2_verifier_tpu_torch.ops import bn254_micro_kernels as mk9
 from halo2_plonky2_verifier_tpu_torch.ops import goldilocks as tgl
 from halo2_plonky2_verifier_tpu_torch.ops import merkle_kernels as mk
@@ -212,46 +214,67 @@ def _fr_vals(planes):
              for e in range(u.shape[1] // 4)] for row in u]
 
 
-def _std_round(state, r):
-    c, m = jbn.generate()
-    state = [(s + c[r * 4 + i]) % FR_P for i, s in enumerate(state)]
-    state[0] = pow(state[0], 5, FR_P)
-    return [sum(m[i][j] * state[j] for j in range(4)) % FR_P
-            for i in range(4)]
+def _opt_tables():
+    """The optimized schedule's tables by round, plain field values: the
+    port's layout (`constants/poseidon_bn254_opt.py:round_tables`) of the
+    JAX package's `refimpl/poseidon_bn254_opt.py:opt_tables()`
+    (`tests/test_torch_bn254_opt.py` holds the two equal)."""
+    return tpo.round_tables()
 
 
-def _mix(state):
-    _, m = jbn.generate()
-    return [sum(_mont(m[i][j]) * state[j] for j in range(4)) * R_INV % FR_P
-            for i in range(4)]
+def _full_round(v, r):
+    """Full round r of the optimized schedule on standard-form ints."""
+    t = _opt_tables()
+    v = [(pow((x + t["pre"][r][e]) % FR_P, 5, FR_P) + t["post"][r][e])
+         % FR_P for e, x in enumerate(v)]
+    return [sum(t["mix"][r][f][e] * v[e] for e in range(4)) % FR_P
+            for f in range(4)]
+
+
+def _partial_round(v, i):
+    """Partial round i of the optimized schedule on standard-form ints."""
+    t = _opt_tables()
+    s0 = (pow(v[0], 5, FR_P) + t["gamma"][i]) % FR_P
+    v = [s0] + v[1:]
+    return ([sum(t["row0"][i][e] * v[e] for e in range(4)) % FR_P]
+            + [(v[k] + t["col0"][i][k - 1] * s0) % FR_P for k in range(1, 4)])
+
+
+def _in_std(fn):
+    """A step on Montgomery values from one on standard-form values."""
+    return lambda s, *a: [_mont(v) for v in fn([_std(v) for v in s], *a)]
 
 
 def _fr_step(name, s, i):
     """One iteration of probe `name` on one lane's Montgomery values."""
-    r = jbn.FULL_ROUNDS // 2 + i % jbn.PARTIAL_ROUNDS
     if name == "sqr_redc":
         return [s[0] * s[0] * R_INV % FR_P]
     if name == "mont_mul":
         return [s[0] * s[1] * R_INV % FR_P, s[1]]
     if name == "redc":
         return [s[0] * R_INV % FR_P]
-    if name == "mix":
-        return _mix(s)
-    if name == "permute":
-        return [_mont(v) for v in bn_ref.permute([_std(v) for v in s])]
+    if name == "sbox":
+        return _in_std(lambda v: [pow(v[0], 5, FR_P)])(s)
+    if name in ("permute", "permute_group4"):
+        return _in_std(bn_ref.permute)(s)
+    if name == "full_round":
+        return _in_std(_full_round)(s, i % jbn.FULL_ROUNDS)
     states = [s[k:k + 4] for k in range(0, len(s), 4)]   # partial rounds
-    return [_mont(v) for st in states
-            for v in _std_round([_std(v) for v in st], r)]
+    return [v for st in states for v in _in_std(_partial_round)(
+        st, i % jbn.PARTIAL_ROUNDS)]
 
 
-FR_CHAINS = {"sqr_redc": 5, "mont_mul": 5, "redc": 5, "mix": 3,
-             "partial_round": 3, "partial_round_x2": 2, "permute": 1}
+# full_round and partial_round_sparse run past their last round, so the
+# chain's wrap to round 0 is covered
+FR_CHAINS = {"sqr_redc": 5, "mont_mul": 5, "redc": 5, "sbox": 3,
+             "full_round": 9, "partial_round_sparse": 57,
+             "partial_round_sparse_x2": 3, "permute": 1, "permute_group4": 1}
 
 
 @pytest.mark.parametrize("name", sorted(FR_CHAINS))
 def test_k9_fr_probe_plain_vs_python_ints(name):
     rng = np.random.default_rng(200 + sorted(FR_CHAINS).index(name))
-    lanes = 2 if name == "permute" else 3
+    lanes = 2 if name.startswith("permute") else 3
     elems = mk9.PROBES[name][1] // 4
     vals = [[int.from_bytes(rng.bytes(32), "little") % FR_P
              for _ in range(elems)] for _ in range(lanes)]
@@ -265,6 +288,29 @@ def test_k9_fr_probe_plain_vs_python_ints(name):
             row = _fr_step(name, row, i)
         want.append(row)
     assert _fr_vals(got) == want
+
+
+def test_k9_round_probes_compose_to_the_permutation():
+    """The plain round probes' steps in the schedule's order (full rounds
+    0..3, partial rounds 0..55, full rounds 4..7) are the permutation of
+    `refimpl/poseidon_bn254.py` on Python ints: the parts that
+    `tools/torch_bn254_micro.py` adds up are the permutation's."""
+    rng = np.random.default_rng(210)
+    vals = [[int.from_bytes(rng.bytes(32), "little") % FR_P
+             for _ in range(4)] for _ in range(2)]
+    vals[0] = [0, 1, FR_P - 1, FR_P - 2]
+    s = _fr_words([[_mont(v) for v in row] for row in vals])
+    half = jbn.FULL_ROUNDS // 2
+    schedule = ([("full_round", r) for r in range(half)]
+                + [("partial_round_sparse", i)
+                   for i in range(jbn.PARTIAL_ROUNDS)]
+                + [("full_round", r) for r in range(half, jbn.FULL_ROUNDS)])
+    words = s.T.reshape(-1, 4, 4)
+    for name, i in schedule:
+        words = mk9.FR_STEPS[name](words, i)
+    got = _fr_vals(words.reshape(words.shape[0], -1).T.contiguous())
+    assert [[_std(v) for v in row] for row in got] == [
+        bn_ref.permute(row) for row in vals]
 
 
 def test_k9_multiplier_probes_plain_vs_numpy():
@@ -294,13 +340,77 @@ def test_k9_multiplier_probes_plain_vs_numpy():
         (words & np.uint64(0xFFFF)).astype(np.int64))
 
 
+def test_k9_f32_floor_form_equals_fmod():
+    """The kernel's f32 reduction v - floor(v 2^-16) 65536 (csrc/
+    bn254_micro.cu) equals fmod(v, 65536) bit for bit on every product the
+    f32 probe can form: v = x (x + j + 1) rounded to f32, x in [0, 65536],
+    j in 0..15."""
+    x = np.arange(65537, dtype=np.float32)
+    for j in range(16):
+        v = x * (x + np.float32(j + 1))
+        assert v.dtype == np.float32
+        floor = v - np.floor(v * np.float32(2.0 ** -16)) * np.float32(65536)
+        want = np.fmod(v, np.float32(65536))
+        np.testing.assert_array_equal(floor.view(np.uint32),
+                                      want.view(np.uint32))
+
+
+def test_k9_wide_probe_plain_vs_python_ints():
+    """The wide probe: 16 times x = hi32(x) c_j + x mod 2^64 a chain step,
+    c_j = 0x1E3779B9 + 2j, the constants the kernel's source states."""
+    assert mk9.WIDE_C == tuple(0x1E3779B9 + 2 * j for j in range(16))
+    source = (_build.CSRC / "bn254_micro.cu").read_text()
+    assert "0x1E3779B9u + 2u * (uint32_t)j" in source
+    words = np.random.default_rng(8).integers(
+        0, np.iinfo(np.uint64).max, size=(1, 32), dtype=np.uint64,
+        endpoint=True)
+    words[0, :3] = [0, 1 << 32, np.iinfo(np.uint64).max]
+    chain = 5
+    got = tgl.to_u64(mk9.run_probe_plain("wide_mul16", tgl.from_u64(words),
+                                         chain))
+    for lane in range(words.shape[1]):
+        x = int(words[0, lane])
+        for _ in range(chain):
+            for c in mk9.WIDE_C:
+                x = ((x >> 32) * c + x) % (1 << 64)
+        assert int(got[0, lane]) == x
+    assert len(set(got[0].tolist())) == words.shape[1]
+
+
 def test_k9_wrapper_runs_plain_on_cpu():
-    x = torch_bn254_micro.probe_input("mix", 4, np.random.default_rng(3),
-                                      "cpu")
+    x = torch_bn254_micro.probe_input("full_round", 4,
+                                      np.random.default_rng(3), "cpu")
     before = mk9.run_probe.launches
-    assert torch.equal(mk9.run_probe("mix", x, 2),
-                       mk9.run_probe_plain("mix", x, 2))
+    assert torch.equal(mk9.run_probe("full_round", x, 2),
+                       mk9.run_probe_plain("full_round", x, 2))
     assert mk9.run_probe.launches == before
+
+
+def test_k9_ptxas_usage_by_kernel_instance():
+    """The registers and spill of each K9 template instance, read from
+    nvcc's -Xptxas -v lines, under the name `kernel_instance` gives a
+    run."""
+    text = """ptxas info    : Compiling entry function '_Z18bn254_micro_kernelILi7ELi512EEvPKmPmli' for 'sm_90a'
+ptxas info    : Function properties for _Z18bn254_micro_kernelILi7ELi512EEvPKmPmli
+    8 bytes stack frame, 28 bytes spill stores, 28 bytes spill loads
+ptxas info    : Used 128 registers, used 0 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z22bn254_micro_mul_kernelILi11ELi8EEvPKmPmlli' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 24 registers, used 0 barriers
+ptxas info    : Compiling entry function '_Z25bn254_micro_group4_kernelPKmPmli' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 20480 bytes smem
+"""
+    usage = torch_bn254_micro.ptxas_usage(text)
+    ki = torch_bn254_micro.kernel_instance
+    assert usage[ki("permute", 0, 1)] == {"registers": 128,
+                                          "spill_bytes": 28}
+    assert usage[ki("permute", 512, 1)] == usage[ki("permute", 0, 1)]
+    assert usage[ki("wide_mul16", 0, 8)] == {"registers": 24,
+                                             "spill_bytes": 0}
+    assert usage[ki("permute_group4", 0, 1)]["registers"] == 80
+    assert ki("permute", 128, 1) == "bn254_micro_kernel<7,128>"
+    assert torch_bn254_micro.instance("main") is None
 
 
 # ----------------------------------------------------------------------------
@@ -309,11 +419,15 @@ def test_k9_wrapper_runs_plain_on_cpu():
 
 @pytest.mark.parametrize("bad", [
     "k7_dtype", "k7_shape", "k7_contiguous", "k7_device", "k8_chain",
-    "k8_chain_type", "k9_probe", "k9_threads", "k9_rows", "k9_chain"])
+    "k8_chain_type", "k9_probe", "k9_threads", "k9_rows", "k9_chain",
+    "k9_group4_threads", "k9_fr_k", "k9_mul_k", "k9_mul_threads",
+    "k9_wide_rows"])
 def test_wrappers_reject_bad_inputs(bad):
     st = tgl.from_u64(_rand(120, (12, 8)))
     fr_state = torch_bn254_micro.probe_input("permute", 8,
                                              np.random.default_rng(4), "cpu")
+    word = torch_bn254_micro.probe_input("wide_mul16", 8,
+                                         np.random.default_rng(5), "cpu")
     calls = {
         "k7_dtype": lambda: pk.permute_planes(st.to(torch.int32)),
         "k7_shape": lambda: pk.permute_planes(st[:11].contiguous()),
@@ -322,9 +436,17 @@ def test_wrappers_reject_bad_inputs(bad):
         "k8_chain": lambda: pk.permute_planes_chained(st, -1),
         "k8_chain_type": lambda: pk.permute_planes_chained(st, 2.0),
         "k9_probe": lambda: mk9.run_probe("cube", fr_state, 1),
-        "k9_threads": lambda: mk9.run_probe("mix", fr_state, 1, threads=256),
+        "k9_threads": lambda: mk9.run_probe("full_round", fr_state, 1,
+                                            threads=256),
         "k9_rows": lambda: mk9.run_probe("redc", fr_state, 1),
         "k9_chain": lambda: mk9.run_probe("permute", fr_state, -2),
+        "k9_group4_threads": lambda: mk9.run_probe(
+            "permute_group4", fr_state, 1, threads=128),
+        "k9_fr_k": lambda: mk9.run_probe("permute", fr_state, 1, k=4),
+        "k9_mul_k": lambda: mk9.run_probe("u32_mul16", word, 1, k=2),
+        "k9_mul_threads": lambda: mk9.run_probe("wide_mul16", word, 1,
+                                                threads=128),
+        "k9_wide_rows": lambda: mk9.run_probe("wide_mul16", fr_state, 1),
     }
     with pytest.raises((TypeError, ValueError)):
         calls[bad]()
@@ -360,12 +482,29 @@ def test_measure_poseidon_sol_cpu_tiny():
 
 
 def test_bn254_micro_measure_cpu_tiny(monkeypatch):
-    monkeypatch.setattr(torch_bn254_micro, "RUNS", (
-        ("sqr_redc", 128), ("mont_mul", 128), ("u32_mul16", 128),
-        ("f32_mul16", 128)))
-    rows = torch_bn254_micro.measure(device="cpu", lanes=4, chain=2, reps=1)
-    assert [r["probe"] for r in rows] == ["sqr_redc", "mont_mul",
-                                          "u32_mul16", "f32_mul16"]
+    runs = (("sqr_redc", 0, 1), ("full_round", 0, 1),
+            ("partial_round_sparse", 0, 1),
+            ("partial_round_sparse_x2", 0, 1), ("permute", 0, 1),
+            ("u32_mul16", 0, 4), ("f32_mul16", 0, 1), ("wide_mul16", 0, 8))
+    assert set(runs) <= set(torch_bn254_micro.RUNS)
+    monkeypatch.setattr(torch_bn254_micro, "RUNS", runs)
+    lines = []
+    rows, summary = torch_bn254_micro.measure(
+        device="cpu", lanes=2, mul_lanes=9, chain=1, reps=1,
+        log=lines.append)
+    assert [(r["probe"], r["k"]) for r in rows] == [
+        (name, k) for name, _, k in runs]
+    assert [r["lanes"] for r in rows] == [2] * 5 + [9] * 3
     for r in rows:
         assert math.isfinite(r["ns_per_iter_lane"]) and r["ms"] > 0
         assert r["bound_ms"] > 0
+        assert r["launch_threads"] is None        # no launch on the CPU
+    parts = summary["parts"]
+    assert parts["sum_ms"] == pytest.approx(8 * parts["full_ms"]
+                                            + 56 * parts["partial_ms"])
+    assert summary["x2_over_x1"] > 0
+    assert [(r["probe"], r["peak_per_clock_sm"], r["per_clock_sm"])
+            for r in summary["rates"]] == [("u32_mul16", 64, None),
+                                           ("f32_mul16", 128, None),
+                                           ("wide_mul16", 64, None)]
+    assert len(lines) == 8 + 2

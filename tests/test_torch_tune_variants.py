@@ -26,7 +26,7 @@ from halo2_plonky2_verifier_tpu_torch.ops import _build  # noqa: E402
 
 VARIANTS = (gt.K1_VARIANTS + gt.K2_VARIANTS + gt.K3_VARIANTS
             + gt.K7_VARIANTS + gt.K8_VARIANTS + bt.K4_VARIANTS
-            + bt.K5_VARIANTS + bt.K6_VARIANTS)
+            + bt.K5_VARIANTS + bt.K6_VARIANTS + bt.BODY_VARIANTS)
 
 
 def test_variant_tags_are_unique():
@@ -119,3 +119,44 @@ def test_sized_launch_texts_the_tuner_substitutes():
     body = (_build.CSRC / "poseidon_gl.cuh").read_text()
     assert body.count(gt.K3_LAST_PERMUTE) == 1
     assert body.count(gt.K3_SPONGE) == 1
+
+
+SASS = """
+	code for sm_90a
+		Function : _Z18bn254_micro_kernelILi7ELi512EEvPKmPmli
+	.headerflags	@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                       /* 0x00000a00ff017b82 */
+                                                                                /* 0x000fe40000000800 */
+        /*0010*/                   IMAD.WIDE.U32 R4, R2, R3, R4 ;               /* 0x0000000302047225 */
+        /*0020*/                   IMAD.WIDE.U32 R6, R2, R8, R6 ;               /* 0x0000000802067225 */
+        /*0030*/                   IADD3 R5, P0, R5, R6, RZ ;                   /* 0x0000000605057210 */
+        /*0040*/              @!P1 IADD3.X R7, R7, RZ, RZ, P0, !PT ;            /* 0x000000ff07079210 */
+        /*0050*/                   HFMA2.MMA R9, -RZ, RZ, 0, 0 ;                /* 0x00000000ff097435 */
+        /*0060*/                   BRA 0x60;                                    /* 0xfffffffc00fc7947 */
+		..........
+
+		Function : _Z22bn254_micro_mul_kernelILi11ELi8EEvPKmPmlli
+	.headerflags	@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   IMAD.MOV.U32 R1, RZ, RZ, c[0x0][0x28] ;      /* 0x00000a00ff017624 */
+        /*0010*/                   SEL R2, R3, R4, P0 ;                         /* 0x0000000403027207 */
+        /*0020*/                   MOV R5, R6 ;                                 /* 0x0000000600057202 */
+        /*0030*/                   IMAD.WIDE.U32 R8, R8, -0x61c88648, R8 ;      /* 0x9e3779b808087825 */
+        /*0040*/                   EXIT ;                                       /* 0x000000000000794d */
+		..........
+"""
+
+
+def test_bn254_function_census_splits_by_kernel_instance():
+    """The k9 census counts each function's SASS opcodes under the name
+    `torch_bn254_micro.kernel_instance` gives its probe run, so each probe
+    reads its own template instance's instructions."""
+    import torch_bn254_micro as tm
+    out = bt.function_census(SASS)
+    permute = out[tm.kernel_instance("permute", 0, 1)]
+    assert permute == {"LDC": 1, "IMAD.WIDE.U32": 2, "IADD3": 1,
+                       "IADD3.X": 1, "HFMA2.MMA": 1, "BRA": 1}
+    wide = out[tm.kernel_instance("wide_mul16", 0, 8)]
+    assert {op: wide[op] for op in bt.K9_OPCODES} == {
+        "IMAD.WIDE.U32": 1, "IADD3": 0, "IADD3.X": 0, "MOV": 1,
+        "IMAD.MOV.U32": 1, "HFMA2.MMA": 0, "SEL": 1}
+    assert sum(out.values(), type(wide)())["IMAD.WIDE.U32"] == 3

@@ -35,11 +35,9 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 from collections import defaultdict
-from datetime import datetime
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -56,6 +54,8 @@ from halo2_plonky2_verifier_tpu_torch import (build_verifier,  # noqa: E402
                                               hashing, witness)
 from halo2_plonky2_verifier_tpu_torch.ops import _build  # noqa: E402
 from halo2_plonky2_verifier_tpu_torch.ops import goldilocks as gl  # noqa: E402
+from halo2_plonky2_verifier_tpu_torch.utils.timing import (  # noqa: E402
+    SmiSampler)
 
 SIZES = (
     # tag, n, degree_bits, fixture, B, hasher, transcript
@@ -142,26 +142,6 @@ def profile_size(num_rows, degree_bits, fixture, size, hasher, transcript):
     return summary, table
 
 
-SMI_FIELDS = "timestamp,clocks.sm,power.draw,temperature.gpu"
-
-
-def _smi_samples(path):
-    """[(epoch s, SM MHz, W, deg C)] from the sampler's csv output."""
-    rows = []
-    with open(path) as f:
-        for line in f:
-            parts = [x.strip() for x in line.split(",")]
-            if len(parts) != 4:
-                continue
-            try:
-                t = datetime.strptime(parts[0], "%Y/%m/%d %H:%M:%S.%f")
-                rows.append((t.timestamp(), float(parts[1]),
-                             float(parts[2]), float(parts[3])))
-            except ValueError:
-                continue
-    return rows
-
-
 def _events():
     return (torch.cuda.Event(enable_timing=True),
             torch.cuda.Event(enable_timing=True))
@@ -169,17 +149,10 @@ def _events():
 
 def clock_probe(out):
     """See the module docstring (--clock-probe)."""
-    smi_path = os.path.join(out, "clock_probe_smi.csv")
-    with open(smi_path, "w") as f:
-        sampler = subprocess.Popen(
-            ["nvidia-smi", f"--query-gpu={SMI_FIELDS}",
-             "--format=csv,noheader,nounits", "-lms", "20"], stdout=f)
-    try:
+    with SmiSampler(os.path.join(out, "clock_probe_smi.csv"),
+                    start_s=0) as sampler:
         windows = _clock_probe_windows()
-    finally:
-        sampler.terminate()
-        sampler.wait(timeout=30)
-    samples = _smi_samples(smi_path)
+    samples = sampler.samples()
     for w in windows:
         inside = [r for r in samples if w["t0"] <= r[0] <= w["t1"]]
         w["smi_samples"] = len(inside)
