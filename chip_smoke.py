@@ -5,14 +5,17 @@ Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
 
   1. device: the card's name and power limit;
   2. build: nvcc for every kernel of the port, all at once;
-  3. kernels: K1 (Merkle paths), K2 (transcript, B = 1024 and 4096, also
-     compared at a ragged B = 1023 and at B = 2048), K3 (leaf sponge, w =
-     32; also compared at N = 1, 100 and a ragged 2 * 84 * 1024 + 1, each at
-     w = 5, 8, 9, 13 and 32), K4
+  3. kernels: K1 (Merkle paths; also at the PLONK recmix drive's 4 x 28 x
+     4096 paths of depth 4), K2 (transcript, B = 1024 and 4096, and the
+     PLONK recmix schedule at both; also compared at a ragged B = 1023 and
+     at B = 2048), K3 (leaf sponge, w = 32 and the PLONK recmix drive's four
+     oracle widths at 28 x 4096 leaves; also compared at N = 1, 100 and a
+     ragged 2 * 84 * 1024 + 1, each at w = 5, 8, 9, 13 and 32), K4
      (BN254 Merkle paths), K5 (BN254 leaf hash, w = 4, 2, 32 at the n=2^11
      shapes and w = 4, 2 at the n=2^5 ones; also compared at ragged N, w =
      13 and 4), K6 (the BN254 permutation), K7 (the bulk Goldilocks
-     permutation, 2^17 and 2^21 states; also compared at 2^17 + 1),
+     permutation, 2^17 and 2^21 states and the PLONK public-input hash's
+     4096; also compared at 2^17 + 1),
      K8 (64 chained Goldilocks permutations on 2^18 states; also compared
      at chain 0 and 1 on 2^18 + 1) and K9 (every run of
      `tools/torch_bn254_micro.py`: the probes of the BN254 body's functions
@@ -41,18 +44,31 @@ Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
      a. through `build_verifier` on a tiled fixture: every verdict must be
         True, a tampered batch must give the expected verdicts, and its
         first lanes must match the plain path run on the CPU (32 lanes
-        Goldilocks, 8 BN254); K7-K9 must not launch:
+        Goldilocks, 8 BN254); none of K4-K9 but the drive's own may launch
+        (`drive_batch`):
           GL fold shape      n=2^11 B=1024, Goldilocks caps and transcript
           GL flagship        n=2^5  B=4096
           BN254 fold shape   n=2^11 B=1024, BN254 caps, Goldilocks transcript
           BN254 flagship     n=2^5  B=4096, the same configuration
           all-BN254          n=2^5  B=4096, BN254 caps and BN254 transcript;
-     b. GL bulk hash: the batch-last `permute`, `hash_no_pad` at k = 8, 13
+     b. through `plonk.build_plonk_verifier` on plonky2 PLONK proofs read
+        from JSON (`proof_json.py`) against a circuit fixture
+        (`circuit/common.py:load_circuit`), tiled to the batch: every
+        verdict True, a tampered batch (`tamper_plonk`) giving the expected
+        verdicts, its first lanes equal to the CPU plain path's; K1, K2, K3
+        and K7 must launch and K4-K6, K8, K9 must not:
+          PLONK recmix s60   the bench's PLONK circuit (standard_recursion
+                             gate mix, 135 wires, 28 queries), B=4096
+          PLONK recursive    the recursive verifier of recursive_fib_n8,
+                             B=256
+          PLONK logUp        the two-table logUp circuit, B=16, every lane
+                             compared with the CPU;
+     c. GL bulk hash: the batch-last `permute`, `hash_no_pad` at k = 8, 13
         and 60 and `two_to_one` of `ops/poseidon.py`, each on 2^17 seeded
         lanes (K7), the first 64 lanes equal to the plain path on the CPU;
-     c. SOL probes: `tools/torch_sol_bench.py:measure_poseidon_sol` (K7, K8,
+     d. SOL probes: `tools/torch_sol_bench.py:measure_poseidon_sol` (K7, K8,
         K1), each probe's M perm/s and share of its bound;
-     d. BN254 component probes: `tools/torch_bn254_micro.py:measure` (K9),
+     e. BN254 component probes: `tools/torch_bn254_micro.py:measure` (K9),
         ns per iteration per lane of each run, each run's time beside its
         time in phase 3, the sum of the rounds beside the permutation, the
         partial round's x2/x1 ratio, and each multiplier run's multiplies a
@@ -76,8 +92,9 @@ import numpy as np
 import torch
 
 from halo2_plonky2_verifier_tpu_torch import (StarkConfig, build_verifier,
-                                              proof_shape, stark, transcript,
-                                              witness)
+                                              plonk, proof_json, proof_shape,
+                                              stark, transcript, witness)
+from halo2_plonky2_verifier_tpu_torch.circuit import load_circuit
 from halo2_plonky2_verifier_tpu_torch.models.fibonacci import FibonacciStark
 from halo2_plonky2_verifier_tpu_torch.ops import _build
 from halo2_plonky2_verifier_tpu_torch.ops import bn254 as fr
@@ -200,19 +217,64 @@ def with_gl_edges(planes, shift=0, lanes=None):
     planes[:, lanes.to(planes.device)] = gl.from_u64(vals, planes.device)
 
 
-def transcript_inputs(rng, fixture, b):
-    """K2 inputs for the verifier's transcript schedule of `fixture`'s
-    proofs: seeded chunks (n_steps, 8, b), the first lanes of every step
-    made of the edge values, and the schedule's mask (n_steps, 8)."""
-    name, (num_rows, degree_bits) = fixture
-    shape = fibonacci_shape(num_rows, degree_bits)[2]
-    one = witness.load_batch_npz(os.path.join(FIXTURES, name), shape, "cpu")
-    sched, _, _ = stark.challenge_stream(one)
+def schedule_inputs(rng, sched, b):
+    """K2 inputs for a transcript schedule: seeded chunks (n_steps, 8, b),
+    the first lanes of every step made of the edge values, and the
+    schedule's mask (n_steps, 8)."""
     _, mask = transcript.schedule_tables(sched, DEVICE)
     chunks = gl.from_u64(rand_gl(rng, (len(sched.steps), 8, b)), DEVICE)
     for s_ in range(chunks.shape[0]):
         with_gl_edges(chunks[s_], shift=s_)
     return chunks, mask
+
+
+def transcript_inputs(rng, fixture, b):
+    """K2 inputs for the verifier's transcript schedule of `fixture`'s
+    proofs (see `schedule_inputs`)."""
+    name, (num_rows, degree_bits) = fixture
+    shape = fibonacci_shape(num_rows, degree_bits)[2]
+    one = witness.load_batch_npz(os.path.join(FIXTURES, name), shape, "cpu")
+    sched, _, _ = stark.challenge_stream(one)
+    return schedule_inputs(rng, sched, b)
+
+
+# the PLONK drives' circuits: (fixture tag, proofs file); the recmix drive
+# verifies PLONK_B proofs (bench.py's BENCH_CONFIG=plonk)
+PLONK_B = 4096
+RECMIX = ("recmix_s60", "plonk_recmix_s60_x32.jsonl")
+RECURSIVE_FIB = ("recursive_fib_n8", "recursive_fib_n8_x2.jsonl")
+LOGUP = ("logup", "plonk_logup_x4.jsonl")
+
+
+def tile_fields(fields, size):
+    """{field: uint64 arrays} with every array tiled up to `size` lanes."""
+    def tile(x):
+        reps = -(-size // x.shape[0])
+        return np.concatenate([x] * reps, axis=0)[:size].copy()
+
+    return {k: (None if v is None else [tile(x) for x in v]
+                if isinstance(v, list) else tile(v))
+            for k, v in fields.items()}
+
+
+def plonk_fields(circuit, size):
+    """A circuit fixture and its proofs file read through the port's
+    readers: (common, verifier_data, shape, fields tiled to `size`)."""
+    tag, proofs_file = circuit
+    common, vd, _ = load_circuit(
+        os.path.join(FIXTURES, f"plonk_circuit_{tag}.json"))
+    shape = plonk.plonk_proof_shape(common)
+    proofs = proof_json.read_jsonl(os.path.join(FIXTURES, proofs_file),
+                                   proof_json.plonk_proof_from_json)
+    fields = plonk.plonk_u64_fields(proofs, shape, vd)
+    return common, vd, shape, tile_fields(fields, size)
+
+
+def plonk_schedule_inputs(rng, b):
+    """K2 inputs for the transcript schedule of the recmix PLONK proofs."""
+    _, vd, shape, fields = plonk_fields(RECMIX, 1)
+    one = plonk.plonk_batch_from_u64(fields, shape, "cpu")
+    return schedule_inputs(rng, plonk.plonk_challenge_stream(one, vd)[1], b)
 
 
 def sample_lanes(n, groups, per_group):
@@ -227,6 +289,9 @@ def check_kernels(rng, B=1024, Q=84):
     """Phase 3: each kernel against its plain version at main-path shapes
     (B proofs of Q queries).  Returns {K: stats}."""
     m = B * Q
+    # the PLONK recmix drive's geometry: pm lanes a Merkle slot
+    rshape = plonk_fields(RECMIX, 1)[2]
+    pm = rshape.num_queries * PLONK_B
     # K -> list of (kernel fn, plain fn, pick, what, (bound_ms, bound_by) of
     # the timed run, timed fn or None for the kernel fn)
     cases = {}
@@ -249,6 +314,21 @@ def check_kernels(rng, B=1024, Q=84):
                     f"N={n} d_max={d_max}",
                     bound(n * (32 + 8 + 32) + d_max * n * (32 + 4),
                           int(active.sum()) * GL_PERM_MULS), None)]
+    # and the PLONK recmix drive's: 4 oracles of its initial depth
+    pdepth = rshape.initial_depth
+    pargs = path_inputs(rng, (pdepth,) * 4, pm,
+                        lambda n: rand_gl(rng, (n, 4)),
+                        lambda d, n: rand_gl(rng, (d, n, 4)))
+    with_gl_edges(pargs[0])
+    for level in range(pargs[1].shape[0]):
+        with_gl_edges(pargs[1][level], shift=level + 1)
+    pn = pargs[0].shape[1]
+    cases["K1"].append((
+        lambda: mk.verify_paths_planes(*pargs),
+        lambda: mk.verify_paths_planes_plain(*pargs), None,
+        f"PLONK recmix N={pn} d_max={pdepth}",
+        bound(pn * (32 + 8 + 32) + pdepth * pn * (32 + 4),
+              int(pargs[3].sum()) * GL_PERM_MULS), None))
 
     # K2: the transcript schedules of the n=2^11 proofs at B=1024 and of the
     # flagship n=2^5 proofs at B=4096, both timed; also compared (not timed)
@@ -262,6 +342,17 @@ def check_kernels(rng, B=1024, Q=84):
             (lambda c=chunks, k=mask: tk.run_steps_planes(c, k)),
             (lambda c=chunks, k=mask: tk.run_steps_planes_plain(c, k)), None,
             f"n_steps={n_steps} B={b_}",
+            bound(2 * chunks.numel() * 8 + mask.numel() * 4,
+                  n_steps * b_ * GL_PERM_MULS), None))
+    # the PLONK recmix schedule at B=1024 (16 lanes a proof) and at the
+    # drive's B=4096 (4 lanes)
+    for b_ in (B, PLONK_B):
+        chunks, mask = plonk_schedule_inputs(rng, b_)
+        n_steps = chunks.shape[0]
+        cases["K2"].append((
+            (lambda c=chunks, k=mask: tk.run_steps_planes(c, k)),
+            (lambda c=chunks, k=mask: tk.run_steps_planes_plain(c, k)), None,
+            f"PLONK recmix n_steps={n_steps} B={b_}",
             bound(2 * chunks.numel() * 8 + mask.numel() * 4,
                   n_steps * b_ * GL_PERM_MULS), None))
     # (B=1023 runs a ragged last group of 16 lanes; B=2048 the 4-lane form)
@@ -282,6 +373,16 @@ def check_kernels(rng, B=1024, Q=84):
                     f"w=32 N={2 * m}",
                     bound(leaves.numel() * 8 + 2 * m * 32,
                           4 * 2 * m * GL_PERM_MULS), None)]
+    # and the PLONK recmix drive's four oracle widths, one launch each
+    for w in rshape.oracle_widths:
+        x3 = gl.from_u64(rand_gl(rng, (w, pm)), DEVICE)
+        with_gl_edges(x3)
+        cases["K3"].append((
+            (lambda x=x3: mk.hash_no_pad_planes(x)),
+            (lambda x=x3: mk.hash_no_pad_planes_plain(x)), None,
+            f"PLONK recmix w={w} N={pm}",
+            bound(x3.numel() * 8 + pm * 32,
+                  math.ceil(w / 8) * pm * GL_PERM_MULS), None))
     checks["K3"] = []
     for lanes in (1, 100, 2 * m + 1):
         for w in (5, 8, 9, 13, 32):
@@ -388,6 +489,14 @@ def check_kernels(rng, B=1024, Q=84):
             (lambda st7=st7: pk.permute_planes(st7)),
             (lambda st7=st7: pk.permute_planes_plain(st7)), None, f"N={n7}",
             bound(2 * st7.numel() * 8, n7 * GL_PERM_MULS), None))
+    # and the PLONK drive's public-input hash: one permutation a proof
+    st7p = gl.from_u64(rand_gl(rng, (12, PLONK_B)), DEVICE)
+    with_gl_edges(st7p)
+    cases["K7"].append((
+        (lambda: pk.permute_planes(st7p)),
+        (lambda: pk.permute_planes_plain(st7p)), None,
+        f"PLONK public-input hash N={PLONK_B}",
+        bound(2 * st7p.numel() * 8, PLONK_B * GL_PERM_MULS), None))
     st7 = gl.from_u64(rand_gl(rng, (12, (1 << 17) + 1)), DEVICE)
     with_gl_edges(st7)
     checks["K7"] = [((lambda: pk.permute_planes(st7)),
@@ -497,15 +606,8 @@ def check_kernels(rng, B=1024, Q=84):
 
 def tiled_fields(path, shape, size):
     """The fixture's fields as uint64 arrays, tiled up to `size` lanes."""
-    fields = witness.u64_fields(witness.npz_leaves(path), shape)
-
-    def tile(x):
-        reps = -(-size // x.shape[0])
-        return np.concatenate([x] * reps, axis=0)[:size].copy()
-
-    return {k: (None if v is None else [tile(x) for x in v]
-                if isinstance(v, list) else tile(v))
-            for k, v in fields.items()}
+    return tile_fields(witness.u64_fields(witness.npz_leaves(path), shape),
+                       size)
 
 
 def _copy(fields):
@@ -579,20 +681,18 @@ def counted(name, run, expected, absent=()):
     return counts, result
 
 
-def drive(name, num_rows, degree_bits, fixture, size, hasher, transcript_,
-          expected, tamper_fn, lanes, device_line):
-    """Verify a real batch through the port's entry point on the card,
-    then a copy tampered by `tamper_fn`, whose first `lanes` lanes are also
-    verified on the CPU; returns the kernel launch counts of the first run
-    and its best wall time."""
-    fib, config, shape = fibonacci_shape(num_rows, degree_bits, hasher)
-    fields = tiled_fields(os.path.join(FIXTURES, fixture), shape, size)
-    batch = witness.batch_from_u64(fields, shape, DEVICE)
-    verify = build_verifier(fib, config, degree_bits, hasher=hasher,
-                            transcript=transcript_)
-
-    counts, verdict = counted(name, lambda: verify(batch), expected,
-                              absent=("K7", "K8", "K9"))
+def drive_batch(name, verify, make_batch, fields, size, expected, tamper_fn,
+                lanes, device_line):
+    """Verify `make_batch(fields, device)` on the card (every lane must
+    pass, the kernels of `expected` launch and K4-K9 outside it do not),
+    time it best of 3, then verify a copy tampered by `tamper_fn`, whose
+    first `lanes` lanes are also verified on the CPU; returns the kernel
+    launch counts of the first run and its best wall time."""
+    batch = make_batch(fields, DEVICE)
+    counts, verdict = counted(
+        name, lambda: verify(batch), expected,
+        absent=[k for k in ("K4", "K5", "K6", "K7", "K8", "K9")
+                if k not in expected])
     if verdict.shape != (size,) or not bool(verdict.all()):
         raise AssertionError(f"{name}: valid proofs rejected: "
                              f"{int((~verdict).sum())} of {size}")
@@ -609,22 +709,31 @@ def drive(name, num_rows, degree_bits, fixture, size, hasher, transcript_,
         f"of {size}, best of 3) on {device_line}")
 
     bad_fields, bad = tamper_fn(fields)
-    got = verify(witness.batch_from_u64(bad_fields, shape, DEVICE)).cpu()
+    got = verify(make_batch(bad_fields, DEVICE)).cpu()
     want = torch.ones(size, dtype=torch.bool)
     want[bad] = False
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: tampered verdicts {got[:16].tolist()}, "
                              f"expected {want[:16].tolist()}")
-    cpu_fields = {k: (None if v is None else [x[:lanes] for x in v]
-                      if isinstance(v, list) else v[:lanes])
-                  for k, v in bad_fields.items()}
-    cpu = verify(witness.batch_from_u64(cpu_fields, shape, "cpu"))
+    cpu = verify(make_batch(tile_fields(bad_fields, lanes), "cpu"))
     if not torch.equal(cpu, got[:lanes]):
         raise AssertionError(f"{name}: card and CPU verdicts differ: "
                              f"{got[:lanes].tolist()} vs {cpu.tolist()}")
     log(f"{name}: tampered lanes {bad} rejected, lane 0 and the rest "
         f"accepted; first {lanes} lanes equal the CPU plain path")
     return counts, best
+
+
+def drive(name, num_rows, degree_bits, fixture, size, hasher, transcript_,
+          expected, tamper_fn, lanes, device_line):
+    """A FibonacciStark batch through `build_verifier` (`drive_batch`)."""
+    fib, config, shape = fibonacci_shape(num_rows, degree_bits, hasher)
+    fields = tiled_fields(os.path.join(FIXTURES, fixture), shape, size)
+    verify = build_verifier(fib, config, degree_bits, hasher=hasher,
+                            transcript=transcript_)
+    return drive_batch(
+        name, verify, lambda f, dev: witness.batch_from_u64(f, shape, dev),
+        fields, size, expected, tamper_fn, lanes, device_line)
 
 
 DRIVES = (
@@ -641,6 +750,42 @@ DRIVES = (
     ("all-BN254 n=2^5 B=4096", 32, 5,
      "fib_stark_n32_poseidon_bn254_bn254sponge_x8.npz", 4096, BN, BN,
      ("K4", "K5", "K6"), tamper_bn254, 8),
+)
+
+
+def tamper_plonk(fields):
+    """Corrupt one value in each of lanes 1..5, and 6 where the circuit has
+    lookups (lane 0 stays clean): a public input, a wire opening, a Merkle
+    sibling, a quotient opening, a Z opening made non-canonical, a lookup Z
+    opening.  Returns the tampered fields and the lanes expected to fail."""
+    f = _copy(fields)
+    _bump(f["public_inputs"], (1, 0))
+    _bump(f["wires"], (2, 3, 0))
+    f["initial_siblings"][2][3, 1, 0] = np.uint64(9)
+    _bump(f["quotient_polys"], (4, 0, 0))
+    f["plonk_zs"][5, 0, 1] = np.uint64(gl.P)       # not canonical
+    bad = [1, 2, 3, 4, 5]
+    if f["lookup_zs"] is not None:
+        _bump(f["lookup_zs"], (6, 0, 0))
+        bad.append(6)
+    return f, bad
+
+
+def drive_plonk(name, circuit, size, lanes, device_line):
+    """PLONK proofs read from JSON through `build_plonk_verifier`
+    (`drive_batch`, tampered by `tamper_plonk`)."""
+    common, vd, shape, fields = plonk_fields(circuit, size)
+    return drive_batch(
+        name, plonk.build_plonk_verifier(common, vd),
+        lambda f, dev: plonk.plonk_batch_from_u64(f, shape, dev), fields,
+        size, ("K1", "K2", "K3", "K7"), tamper_plonk, lanes, device_line)
+
+
+PLONK_DRIVES = (
+    # name, circuit, B, lanes checked on the CPU
+    (f"PLONK recmix s60 B={PLONK_B}", RECMIX, PLONK_B, 8),
+    ("PLONK recursive_fib_n8 B=256", RECURSIVE_FIB, 256, 8),
+    ("PLONK logUp B=16", LOGUP, 16, 16),
 )
 
 
@@ -725,6 +870,8 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this test needs a CUDA card")
 
+    t_start = time.monotonic()
+
     # 1. the device
     kind = torch.cuda.get_device_name(0)
     device_line = torch_sol_bench.card_line()
@@ -749,6 +896,8 @@ def main():
     counts, walls = {}, {}
     for name, *spec in DRIVES:
         counts[name], walls[name] = drive(name, *spec, device_line)
+    for name, *spec in PLONK_DRIVES:
+        counts[name], walls[name] = drive_plonk(name, *spec, device_line)
     counts["GL bulk hash"], walls["GL bulk hash"] = drive_bulk_hash(
         rng, device_line)
     counts["SOL probes"], walls["SOL probes"], sol_rows = drive_sol()
@@ -776,6 +925,7 @@ def main():
                pallas + "poseidon_pallas.py:368"),
         "K9": ("bn254_micro", "bn254_micro.cu", "tools/bn254_micro.py:45"),
     }
+    log(f"chip_smoke: {time.monotonic() - t_start:.1f} s from the start")
     kernels = []
     for k, (name, source, replaces) in meta.items():
         by_drive = {d: counts[d][k] for d in counts}

@@ -66,8 +66,10 @@ class CollectingConsumer:
 
 class ExtOps:
     """Field-ops adapter over extension elements of batch shape
-    `batch_shape`, for Stark.eval and the permutation checks (the interface
-    of the JAX package's ExtOpsJax)."""
+    `batch_shape`, for Stark.eval, the permutation checks and the PLONK
+    gates and vanishing terms (the interface of the JAX package's
+    ExtOpsJax, with `mul_const_small`, `mul_many` and `fold`, which the
+    PLONK gates call)."""
 
     def __init__(self, batch_shape, device):
         self.batch_shape = tuple(batch_shape)
@@ -99,6 +101,12 @@ class ExtOps:
             return (gl.full(self.batch_shape, x, self.device),
                     gl.zeros(self.batch_shape, self.device))
         return gle.from_base(x)
+
+    def mul_const_small(self, c, a):
+        """a * c for a small host int 0 <= c < 2^16 (the PLONK gates' MDS
+        entries): two `gl.mul_const_small` where `mul` takes four base
+        products."""
+        return (gl.mul_const_small(a[0], c), gl.mul_const_small(a[1], c))
 
     def mul_elems(self, xs, ys):
         """[x * y for x, y in zip(xs, ys)] as one stacked multiply."""

@@ -9,6 +9,7 @@ The port's state carried across from the JAX package is a proof batch:
 `batch_from_numpy` takes the leaves of a JAX `ProofBatch` (numpy (hi, lo)
 uint32 arrays in pytree order) and `load_batch_npz` reads the columnar
 fixtures that `witness.save_batch_npz` wrote, with numpy alone.
+`load_proofs` takes proofs read from JSON (`proof_json.py`, `interop.py`).
 
 Hash-typed fields (caps and siblings) hold (..., 4) int64 words under both
 hashers: four Goldilocks elements, or the four little-endian u64 words of
@@ -205,8 +206,48 @@ def u64_fields(leaves, shape):
     return out
 
 
+def field_shapes(S: ProofShape):
+    """field -> the shape of one proof's array (a list of shapes for a
+    list field; None for an absent permutation field)."""
+    cap, q = (S.cap_size, 4), S.num_queries
+    zs = (S.num_zs, 2) if S.uses_permutation else None
+    return {
+        "trace_cap": cap, "zs_cap": cap if S.uses_permutation else None,
+        "quotient_cap": cap,
+        "local_values": (S.num_columns, 2), "next_values": (S.num_columns, 2),
+        "permutation_zs": zs, "permutation_zs_next": zs,
+        "quotient_polys": (S.num_quotient, 2),
+        "commit_caps": [cap] * len(S.reduction_arity_bits),
+        "final_poly": (S.final_poly_len, 2), "pow_witness": (),
+        "initial_evals": [(q, w) for w in S.oracle_widths],
+        "initial_siblings": [(q, S.initial_depth, 4)] * len(S.oracle_widths),
+        "step_evals": [(q, 1 << ab, 2) for ab in S.reduction_arity_bits],
+        "step_siblings": [(q, d, 4) for d in S.step_depths],
+        "public_inputs": (S.num_public_inputs,),
+    }
+
+
+def check_field_shapes(fields_u64, want_shapes):
+    """Raises ValueError when an array's shape is not the one
+    `want_shapes` (as from `field_shapes`) gives it, at the batch size of
+    `pow_witness`: a proof with a wrong count of openings, queries or
+    siblings, or batch sizes that differ."""
+    b = len(fields_u64["pow_witness"])
+    for f, want in want_shapes.items():
+        v = fields_u64[f]
+        got = ([x.shape for x in v] if isinstance(v, list)
+               else None if v is None else v.shape)
+        want = ([(b,) + w for w in want] if isinstance(want, list)
+                else None if want is None else (b,) + want)
+        if got != want:
+            raise ValueError(f"{f}: shape {got}, expected {want}")
+
+
 def batch_from_u64(fields_u64, shape, device):
-    """{field: uint64 arrays} (as from `u64_fields`) -> ProofBatch."""
+    """{field: uint64 arrays} (as from `u64_fields`) -> ProofBatch.  Raises
+    ValueError when an array's shape is not the one `shape` gives."""
+    check_field_shapes(fields_u64, field_shapes(shape))
+
     def conv(v):
         if v is None:
             return None
@@ -214,12 +255,92 @@ def batch_from_u64(fields_u64, shape, device):
             return [gl.from_u64(x, device) for x in v]
         return gl.from_u64(v, device)
 
-    batch = ProofBatch(shape=shape, **{f: conv(fields_u64[f]) for f in _FIELDS})
-    b = batch.batch_size
-    for t in _tensors(batch):
-        if t.shape[0] != b:
-            raise ValueError(f"inconsistent batch sizes {t.shape[0]} vs {b}")
-    return batch
+    return ProofBatch(shape=shape, **{f: conv(fields_u64[f]) for f in _FIELDS})
+
+
+def u64(nested):
+    """Nested host ints below 2^64 -> a uint64 array (a larger value
+    raises OverflowError)."""
+    return np.array(nested, dtype=np.uint64)
+
+
+def bn254_words(nested):
+    """Nested host ints below 2^256 -> (..., 4) uint64 little-endian
+    words."""
+    a = np.array(nested, dtype=object)
+    if a.size and not ((a >= 0) & (a < 1 << 256)).all():
+        raise ValueError("a BN254 hash out of [0, 2^256)")
+    return np.stack([((a >> (64 * k)) & ((1 << 64) - 1)).astype(np.uint64)
+                     for k in range(4)], axis=-1)
+
+
+def fri_u64_fields(proofs, shape, hashes=u64):
+    """The FRI opening proofs' fields of `proofs` (any proof type with
+    `proof.opening_proof`) -> {commit_caps, final_poly, pow_witness,
+    initial_evals, initial_siblings, step_evals, step_siblings} as uint64
+    arrays; `hashes` converts the hash-typed ones."""
+    S = shape
+    B = len(proofs)
+    fris = [p.proof.opening_proof for p in proofs]
+    qrs = [f.query_round_proofs for f in fris]
+    out = {
+        "commit_caps": [hashes([f.commit_phase_merkle_caps[i] for f in fris])
+                        for i in range(len(S.reduction_arity_bits))],
+        "final_poly": u64([f.final_poly for f in fris]),
+        "pow_witness": u64([f.pow_witness for f in fris]),
+        "initial_evals": [], "initial_siblings": [],
+        "step_evals": [], "step_siblings": [],
+    }
+    for oi in range(len(S.oracle_widths)):
+        out["initial_evals"].append(u64([
+            [qr.initial_trees_proof.evals_proofs[oi][0] for qr in q]
+            for q in qrs]))
+        out["initial_siblings"].append(hashes([
+            [qr.initial_trees_proof.evals_proofs[oi][1].siblings for qr in q]
+            for q in qrs]).reshape(B, S.num_queries, S.initial_depth, 4))
+    for si in range(len(S.reduction_arity_bits)):
+        out["step_evals"].append(u64([[qr.steps[si].evals for qr in q]
+                                      for q in qrs]))
+        out["step_siblings"].append(hashes([
+            [qr.steps[si].merkle_proof.siblings for qr in q]
+            for q in qrs]).reshape(B, S.num_queries, S.step_depths[si], 4))
+    return out
+
+
+def proof_u64_fields(proofs, shape):
+    """Proofs (`proof_json.StarkProofWithPublicInputs`, one geometry) ->
+    {field: uint64 arrays}, the input of `batch_from_u64` (the JAX
+    package's `load_proofs`, `witness.py:134` there).  A hash array holds
+    (..., 4) words under both hashers."""
+    S = shape
+    hashes = bn254_words if S.hasher == "poseidon_bn254" else u64
+
+    def per_proof(get, conv=u64):
+        return conv([get(p) for p in proofs])
+
+    out = fri_u64_fields(proofs, S, hashes)
+    out.update({
+        "trace_cap": per_proof(lambda p: p.proof.trace_cap, hashes),
+        "zs_cap": (per_proof(lambda p: p.proof.permutation_zs_cap, hashes)
+                   if S.uses_permutation else None),
+        "quotient_cap": per_proof(lambda p: p.proof.quotient_polys_cap,
+                                  hashes),
+        "public_inputs": per_proof(lambda p: p.public_inputs),
+    })
+    for f in ("local_values", "next_values", "quotient_polys"):
+        out[f] = per_proof(lambda p, f=f: getattr(p.proof.openings, f))
+    for f in ("permutation_zs", "permutation_zs_next"):
+        out[f] = (per_proof(lambda p, f=f: getattr(p.proof.openings, f))
+                  if S.uses_permutation else None)
+    return out
+
+
+def load_proofs(proofs, shape, device="cuda"):
+    """Proofs (`proof_json.StarkProofWithPublicInputs`, as read by
+    `proof_json.proof_from_json` or `interop.stark_proof_from_plonky2_json`)
+    -> ProofBatch on `device` (the card unless the caller asks for the
+    CPU)."""
+    return batch_from_u64(proof_u64_fields(proofs, shape), shape, device)
 
 
 def batch_from_numpy(leaves, shape, device):

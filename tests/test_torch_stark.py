@@ -344,6 +344,20 @@ _NO_JAX = textwrap.dedent("""
                              transcript="poseidon_bn254")(
         witness.batch_from_u64(fields, shape, "cpu"))
     assert verdict.tolist() == [True] * 2, verdict
+
+    # PLONK: the circuit from its fixture, one recmix proof from JSON (the
+    # repo's format and plonky2's serde readers both import)
+    from halo2_plonky2_verifier_tpu_torch import interop, plonk, proof_json
+    from halo2_plonky2_verifier_tpu_torch.circuit import load_circuit
+
+    common, vd, _ = load_circuit(sys.argv[4])
+    with open(sys.argv[5]) as f:
+        proof = proof_json.plonk_proof_from_json(f.readline())
+    shape = plonk.plonk_proof_shape(common)
+    verdict = plonk.build_plonk_verifier(common, vd)(
+        plonk.load_plonk_proofs([proof], shape, vd, "cpu"))
+    assert verdict.tolist() == [True], verdict
+    assert callable(interop.plonk_proof_from_plonky2_json)
     loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not loaded, loaded
     print("verified without jax")
@@ -352,13 +366,16 @@ _NO_JAX = textwrap.dedent("""
 
 def test_port_verifies_in_a_process_without_jax():
     """The card's machine has no jax: the port must import and verify a
-    Goldilocks and an all-BN254 batch with every import of jax (and of the
-    JAX package) refused."""
+    Goldilocks and an all-BN254 batch, and a PLONK proof read from JSON
+    against its circuit fixture, with every import of jax (and of the JAX
+    package) refused."""
     out = subprocess.run(
         [sys.executable, "-c", _NO_JAX, REPO,
          os.path.join(FIXTURES, "fib_stark_n32_x8.npz"),
          os.path.join(FIXTURES,
-                      "fib_stark_n32_poseidon_bn254_bn254sponge_x8.npz")],
+                      "fib_stark_n32_poseidon_bn254_bn254sponge_x8.npz"),
+         os.path.join(FIXTURES, "plonk_circuit_recmix_s60.json"),
+         os.path.join(FIXTURES, "plonk_recmix_s60_x4.jsonl")],
         capture_output=True, text=True, timeout=300, cwd=REPO)
     assert out.returncode == 0, out.stderr[-4000:]
     assert "verified without jax" in out.stdout

@@ -2,7 +2,8 @@
 
 For each drive of `chip_smoke.py` (FibonacciStark n=2^11 B=1024 and n=2^5
 B=4096 under Goldilocks caps and transcript; the same two sizes under BN254
-caps with the Goldilocks transcript; n=2^5 B=4096 all-BN254), this builds
+caps with the Goldilocks transcript; n=2^5 B=4096 all-BN254; the PLONK
+recmix circuit at B=4096, read from JSON), this builds
 the kernels, times three warm `verify(batch)` calls without the profiler,
 then traces one more under `torch.profiler` (CPU and CUDA activities) and
 writes:
@@ -17,6 +18,10 @@ writes:
   <out>/profile_<size>.txt     the profiler's key_averages tables, sorted by
                                device time and by host time.
 
+With --census (on the CPU; no card) it instead counts the PLONK drives'
+launches: one verify's aten ops less views, each kernel one launch, and
+those of its vanishing terms at zeta (<out>/plonk_census.json).
+
 With --clock-probe it instead asks why K4 and K5 take less time inside a
 verify than back to back (as `chip_smoke.py` times them).  On the BN254
 n=2^11 B=1024 drive it times every K4 and K5 launch of three verifies with
@@ -26,9 +31,10 @@ the verify, and twice more alone after an idle second.  `nvidia-smi`
 samples the SM clock, power draw and temperature every 20 ms throughout;
 <out>/clock_probe.json holds each window's launch times and samples.
 
-Usage: python3 tools/torch_profile.py [--out DIR] [--clock-probe]
-       (default DIR build/torch_profile).  Needs one CUDA card and nvcc;
-       imports no jax.
+Usage: python3 tools/torch_profile.py [--out DIR] [--drives TAGS]
+       [--census] [--clock-probe] (default DIR build/torch_profile; TAGS a
+       comma-separated subset such as plonk_recmix_s60_B4096).  Needs one
+       CUDA card and nvcc; imports no jax.
 """
 
 import argparse
@@ -45,13 +51,15 @@ sys.path.insert(0, REPO)
 import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 import numpy as np  # noqa: E402
 
-from chip_smoke import (BN, FIXTURES, GLH, SEED, fibonacci_shape,  # noqa: E402
-                        path_inputs, rand_fr, rand_gl, tiled_fields)
+from chip_smoke import (BN, FIXTURES, GLH, LOGUP, RECMIX,  # noqa: E402
+                        RECURSIVE_FIB, SEED, fibonacci_shape, path_inputs,
+                        plonk_fields, rand_fr, rand_gl, tiled_fields)
 from halo2_plonky2_verifier_tpu_torch import (build_verifier,  # noqa: E402
-                                              hashing, witness)
+                                              hashing, plonk, witness)
 from halo2_plonky2_verifier_tpu_torch.ops import _build  # noqa: E402
 from halo2_plonky2_verifier_tpu_torch.ops import goldilocks as gl  # noqa: E402
 from halo2_plonky2_verifier_tpu_torch.utils.timing import (  # noqa: E402
@@ -68,9 +76,11 @@ SIZES = (
     ("allbn254_n32_B4096", 32, 5,
      "fib_stark_n32_poseidon_bn254_bn254sponge_x8.npz", 4096, BN, BN),
 )
+# tag, circuit, B: the PLONK recmix drive of chip_smoke.py
+PLONK_SIZES = (("plonk_recmix_s60_B4096", RECMIX, 4096),)
 PORT_KERNELS = ("merkle_path_kernel", "transcript_kernel",
                 "leaf_sponge_kernel", "bn254_path_kernel", "bn254_leaf_kernel",
-                "bn254_permute_kernel")
+                "bn254_permute_kernel", "permute_kernel")
 
 
 def kernel_group(name):
@@ -89,9 +99,19 @@ def profile_size(num_rows, degree_bits, fixture, size, hasher, transcript):
     batch = witness.batch_from_u64(fields, shape, "cuda")
     verify = build_verifier(fib, config, degree_bits, hasher=hasher,
                             transcript=transcript)
+    return profile_verify(verify, batch, f"n={num_rows} B={size}")
 
+
+def profile_plonk(circuit, size):
+    common, vd, shape, fields = plonk_fields(circuit, size)
+    batch = plonk.plonk_batch_from_u64(fields, shape, "cuda")
+    return profile_verify(plonk.build_plonk_verifier(common, vd), batch,
+                          f"PLONK {circuit[0]} B={size}")
+
+
+def profile_verify(verify, batch, what):
     if not bool(verify(batch).all()):
-        raise AssertionError(f"n={num_rows} B={size}: valid proofs rejected")
+        raise AssertionError(f"{what}: valid proofs rejected")
     torch.cuda.synchronize()
     walls = []
     for _ in range(3):
@@ -266,25 +286,121 @@ def _timed_once(kernel, args):
     return start.elapsed_time(end)
 
 
+# ops that make a view and launch nothing on the card
+_VIEW_OPS = {"aten.view.default", "aten._unsafe_view.default",
+             "aten.select.int", "aten.slice.Tensor", "aten.expand.default",
+             "aten.unsqueeze.default", "aten.squeeze.dim", "aten.t.default",
+             "aten.transpose.int", "aten.permute.default", "aten.alias.default",
+             "aten.detach.default", "aten.as_strided.default",
+             "aten.lift_fresh.default", "aten.unbind.int", "aten.split.Tensor"}
+
+
+class _LaunchCount(TorchDispatchMode):
+    """Counts the aten ops that would launch a kernel on the card; a
+    wrapper of `_KERNELS` counts as one launch, its plain body as none."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+        self.paused = False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not self.paused and str(func) not in _VIEW_OPS:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+    def kernel(self, fn):
+        def run(*a, **k):
+            self.paused = True
+            try:
+                return fn(*a, **k)
+            finally:
+                self.paused = False
+                self.n += 1
+        return run
+
+
+def census(out):
+    """The PLONK drives' launch model on the CPU: per circuit, the launches
+    of one `build_plonk_verifier` verify (aten ops less views, each of K1,
+    K2, K3 and K7 counted as one launch), and those of its vanishing terms
+    at zeta (`circuit/vanishing.py:eval_vanishing_terms`) among them."""
+    from halo2_plonky2_verifier_tpu_torch import transcript
+    from halo2_plonky2_verifier_tpu_torch.ops import (merkle_kernels,
+                                                      poseidon_kernels)
+
+    result = {}
+    for tag, circuit in (("plonk_recmix_s60", RECMIX),
+                         ("recursive_fib_n8", RECURSIVE_FIB),
+                         ("logup", LOGUP)):
+        common, vd, shape, fields = plonk_fields(circuit, 1)
+        batch = plonk.plonk_batch_from_u64(fields, shape, "cpu")
+        counter = _LaunchCount()
+        vanishing = []
+        eval_vanishing = plonk.eval_vanishing_terms
+
+        def counted_vanishing(*a, **k):
+            n0 = counter.n
+            out = eval_vanishing(*a, **k)
+            vanishing.append(counter.n - n0)
+            return out
+
+        patched = [(hashing.GLHashOps, "verify_paths"),
+                   (merkle_kernels, "hash_no_pad_planes"),
+                   (transcript.transcript_kernels, "run_steps_planes"),
+                   (poseidon_kernels, "permute_planes")]
+        saved = [getattr(o, a) for o, a in patched]
+        for (o, a), fn in zip(patched, saved):
+            setattr(o, a, staticmethod(counter.kernel(fn))
+                    if isinstance(o, type) else counter.kernel(fn))
+        plonk.eval_vanishing_terms = counted_vanishing
+        try:
+            with counter:
+                ok = plonk.build_plonk_verifier(common, vd)(batch)
+        finally:
+            plonk.eval_vanishing_terms = eval_vanishing
+            for (o, a), fn in zip(patched, saved):
+                setattr(o, a, staticmethod(fn) if isinstance(o, type) else fn)
+        if not bool(ok.all()):
+            raise AssertionError(f"census {tag}: the proof was rejected")
+        result[tag] = {"verify_launches": counter.n,
+                       "vanishing_launches": vanishing[0]}
+        print(tag, json.dumps(result[tag]), flush=True)
+    with open(os.path.join(out, "plonk_census.json"), "w") as f:
+        json.dump(result, f, indent=1)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(REPO, "build",
                                                   "torch_profile"))
+    ap.add_argument("--drives", default="",
+                    help="comma-separated tags to profile (default: all)")
     ap.add_argument("--clock-probe", action="store_true",
                     help="time K4 and K5 inside a verify and back to back, "
                          "with SM clock and power samples")
+    ap.add_argument("--census", action="store_true",
+                    help="on the CPU, no card needed: the PLONK drives' "
+                         "launch model (plonk_census.json)")
     args = ap.parse_args()
+    os.makedirs(args.out, exist_ok=True)
+    if args.census:
+        census(args.out)
+        return
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA card")
-    os.makedirs(args.out, exist_ok=True)
     _build.build_all()
     if args.clock_probe:
         clock_probe(args.out)
         return
 
+    runs = [(tag, profile_size, spec) for tag, *spec in SIZES]
+    runs += [(tag, profile_plonk, spec) for tag, *spec in PLONK_SIZES]
+    if args.drives:
+        runs = [r for r in runs if r[0] in args.drives.split(",")]
     summaries = {}
-    for tag, *spec in SIZES:
-        summary, table = profile_size(*spec)
+    for tag, fn, spec in runs:
+        summary, table = fn(*spec)
         summaries[tag] = summary
         with open(os.path.join(args.out, f"profile_{tag}.txt"), "w") as f:
             f.write(table + "\n")
