@@ -8,12 +8,15 @@ Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
   3. kernels: K1 (Merkle paths; also at the PLONK recmix drive's 4 x 28 x
      4096 paths of depth 4), K2 (transcript, B = 1024 and 4096, and the
      PLONK recmix schedule at both; also compared at a ragged B = 1023 and
-     at B = 2048), K3 (leaf sponge, w = 32 and the PLONK recmix drive's four
-     oracle widths at 28 x 4096 leaves; also compared at N = 1, 100 and a
-     ragged 2 * 84 * 1024 + 1, each at w = 5, 8, 9, 13 and 32), K4
-     (BN254 Merkle paths), K5 (BN254 leaf hash, w = 4, 2, 32 at the n=2^11
-     shapes and w = 4, 2 at the n=2^5 ones; also compared at ragged N, w =
-     13 and 4), K6 (the BN254 permutation), K7 (the bulk Goldilocks
+     at B = 2048), K3 (leaf sponge, w = 32, the PLONK recmix drive's four
+     oracle widths at 28 x 4096 leaves and the plonkish drives' 7-wide
+     trace oracle at 84 x 1024 and 84 x 4096 leaves; also compared at N =
+     1, 100 and a ragged 2 * 84 * 1024 + 1, each at w = 5, 7, 8, 9, 13 and
+     32), K4 (BN254 Merkle paths; also compared at the serve drive's
+     BN254-caps request, 3 x 84 x 4 paths of depth 2), K5 (BN254 leaf hash,
+     w = 4, 2, 32 at the n=2^11 shapes and w = 4, 2 at the n=2^5 ones; also
+     compared at ragged N, w = 13 and 4, and at the serve drive's
+     BN254-caps shapes, w = 2 and 4 at 84 x 4 leaves a slot), K6 (the BN254 permutation), K7 (the bulk Goldilocks
      permutation, 2^17 and 2^21 states and the PLONK public-input hash's
      4096; also compared at 2^17 + 1),
      K8 (64 chained Goldilocks permutations on 2^18 states; also compared
@@ -63,18 +66,41 @@ Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
                              B=256
           PLONK logUp        the two-table logUp circuit, B=16, every lane
                              compared with the CPU;
-     c. GL bulk hash: the batch-last `permute`, `hash_no_pad` at k = 8, 13
+     c. through `build_verifier` on PlonkishStark proofs read from JSON
+        (`plonkish_n2048_x8.jsonl`, `plonkish_n32_x8.jsonl`), tiled, as in
+        a. (`drive_plonkish`); K1, K2 and K3 (the 7-wide trace oracle)
+        must launch, K4-K9 must not:
+          plonkish fold shape  n=2^11 B=1024
+          plonkish flagship    n=2^5  B=4096;
+     d. serve: a `serve.VerifierService` on the card answers a JSONL
+        stream (`drive_serve`): FibonacciStark n=2^5 in the repo's JSON
+        at 3 proofs (bucket 4), PlonkishStark n=2^11 at B=1024,
+        PlonkishStark n=2^5 in plonky2's serde JSON, FibonacciStark n=2^5
+        with BN254 caps, each with tampered lanes, a malformed line, and
+        the first request again; every verdict must equal the direct
+        `build_verifier` verdict on the same lanes, the repeat must have
+        `compile_s` null, the malformed line an error; K1-K5 launch;
+     e. sharded (`drive_sharded`): a one-rank NCCL world in this process
+        runs `parallel.mesh.sharded_verifier` on the GL n=2^11 B=1024
+        batch of a. (tampered), its verdicts equal to the unsharded
+        verify's, both timed; then a world of 2 processes on the same card
+        (gloo, each its own time limit) verifies FibonacciStark n=2^11
+        B=1024 from JSON under dp=1 qp=2 and dp=2 qp=1, with lanes whose
+        bad Merkle sibling only the second query shard sees; its gathered
+        verdicts must equal the unsharded verify's;
+     f. GL bulk hash: the batch-last `permute`, `hash_no_pad` at k = 8, 13
         and 60 and `two_to_one` of `ops/poseidon.py`, each on 2^17 seeded
         lanes (K7), the first 64 lanes equal to the plain path on the CPU;
-     d. SOL probes: `tools/torch_sol_bench.py:measure_poseidon_sol` (K7, K8,
+     g. SOL probes: `tools/torch_sol_bench.py:measure_poseidon_sol` (K7, K8,
         K1), each probe's M perm/s and share of its bound;
-     e. BN254 component probes: `tools/torch_bn254_micro.py:measure` (K9),
+     h. BN254 component probes: `tools/torch_bn254_micro.py:measure` (K9),
         ns per iteration per lane of each run, each run's time beside its
         time in phase 3, the sum of the rounds beside the permutation, the
         partial round's x2/x1 ratio, and each multiplier run's multiplies a
         clock an SM;
   5. one JSON line listing the kernels (launches per drive, times, the
-     least time the card could take for the same work), then the last line
+     least time the card could take for the same work), the service's
+     responses and the sharded walls, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -82,20 +108,26 @@ Any failure raises, and the script exits non-zero without the last line.
 Usage: python3 chip_smoke.py        (needs one CUDA card and nvcc)
 """
 
+import io
 import json
 import math
 import os
+import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from halo2_plonky2_verifier_tpu_torch import (StarkConfig, build_verifier,
-                                              plonk, proof_json, proof_shape,
-                                              stark, transcript, witness)
+                                              fixtures, plonk, proof_json,
+                                              proof_shape, serve, stark,
+                                              transcript, witness)
 from halo2_plonky2_verifier_tpu_torch.circuit import load_circuit
 from halo2_plonky2_verifier_tpu_torch.models.fibonacci import FibonacciStark
+from halo2_plonky2_verifier_tpu_torch.models.plonkish import PlonkishStark
 from halo2_plonky2_verifier_tpu_torch.ops import _build
 from halo2_plonky2_verifier_tpu_torch.ops import bn254 as fr
 from halo2_plonky2_verifier_tpu_torch.ops import bn254_kernels as bk
@@ -105,6 +137,13 @@ from halo2_plonky2_verifier_tpu_torch.ops import merkle_kernels as mk
 from halo2_plonky2_verifier_tpu_torch.ops import poseidon as pos
 from halo2_plonky2_verifier_tpu_torch.ops import poseidon_kernels as pk
 from halo2_plonky2_verifier_tpu_torch.ops import transcript_kernels as tk
+from halo2_plonky2_verifier_tpu_torch.parallel import distributed
+from halo2_plonky2_verifier_tpu_torch.parallel.dryrun import (lane_docs,
+                                                              tiled_batch,
+                                                              world_verdicts)
+from halo2_plonky2_verifier_tpu_torch.parallel.mesh import (make_mesh,
+                                                            shard_batch,
+                                                            sharded_verifier)
 from halo2_plonky2_verifier_tpu_torch.utils.roofline import (BN_MONT_MUL,
                                                             BN_PERM_MULS,
                                                             BN_REDC,
@@ -383,9 +422,19 @@ def check_kernels(rng, B=1024, Q=84):
             f"PLONK recmix w={w} N={pm}",
             bound(x3.numel() * 8 + pm * 32,
                   math.ceil(w / 8) * pm * GL_PERM_MULS), None))
+    # and the plonkish drives' trace oracle, w=7: n=2^11 over B x Q leaves,
+    # n=2^5 over 4B x Q
+    for n3 in (m, 4 * m):
+        x3 = gl.from_u64(rand_gl(rng, (7, n3)), DEVICE)
+        with_gl_edges(x3)
+        cases["K3"].append((
+            (lambda x=x3: mk.hash_no_pad_planes(x)),
+            (lambda x=x3: mk.hash_no_pad_planes_plain(x)), None,
+            f"plonkish w=7 N={n3}",
+            bound(x3.numel() * 8 + n3 * 32, n3 * GL_PERM_MULS), None))
     checks["K3"] = []
     for lanes in (1, 100, 2 * m + 1):
-        for w in (5, 8, 9, 13, 32):
+        for w in (5, 7, 8, 9, 13, 32):
             x = rand_gl(rng, (w, lanes))
             x[:, ::1021] |= np.uint64(0xFFFFFFFF00000000)
             x = gl.from_u64(x, DEVICE)
@@ -422,13 +471,21 @@ def check_kernels(rng, B=1024, Q=84):
                     bound(n * (32 + 8 + 32) + d_max * n * (32 + 4),
                           n_act * (BN_PERM_MULS + BN_MONT_MUL) + n * BN_REDC),
                     None)]
+    # and the serve drive's BN254-caps request (fibonacci n=32, bucket 4):
+    # three slots of depth 2 over 4 x Q lanes, compared on every lane
+    sargs = path_inputs(rng, (2, 2, 2), 4 * Q,
+                        lambda n: rand_fr(rng, (n,)), bn_sibs)
+    checks["K4"] = [((lambda: bk.verify_paths_mont_planes(*sargs)),
+                     (lambda: bk.verify_paths_mont_planes_plain(*sargs)),
+                     f"serve BN254 caps N={sargs[0].shape[1]} d_max=2")]
 
     # K5: the BN254 drives' leaf widths, one launch each: the fold shape's
     # three (B proofs) and the flagships' two (4B proofs), the plain version
     # on 128 lanes of each slot, the first 8 of which take the Goldilocks
     # edge values (words >= p included: the packing takes any u64); also
     # compared (not timed) on every lane at ragged N, the sponge's last
-    # chunk partial (w = 13) and whole (w = 4)
+    # chunk partial (w = 13) and whole (w = 4), and at the serve drive's
+    # BN254-caps shapes (fibonacci n=32, bucket 4: w=2 over two slots, w=4)
     cases["K5"] = []
     for w, lanes, slots in ((4, m, 1), (2, 2 * m, 2), (32, 2 * m, 2),
                             (4, 4 * m, 1), (2, 8 * m, 2)):
@@ -445,7 +502,8 @@ def check_kernels(rng, B=1024, Q=84):
             bound(x.numel() * 8 + lanes * 32,
                   lanes * (perms * BN_PERM_MULS + conv * BN_MONT_MUL)), None))
     checks["K5"] = []
-    for w, lanes in ((13, 4 * B + 1), (4, B - 1)):
+    for w, lanes in ((13, 4 * B + 1), (4, B - 1),
+                     (2, 8 * Q), (4, 4 * Q)):
         x = gl.from_u64(rand_gl(rng, (w, lanes)), DEVICE)
         with_gl_edges(x)
         checks["K5"].append(((lambda x=x: bk.hash_or_noop_mont_planes(x)),
@@ -627,7 +685,7 @@ def tamper(fields):
     f["pow_witness"][1] ^= np.uint64(1)
     _bump(f["trace_cap"], (2, 0, 0))
     _bump(f["local_values"], (3, 0, 0))
-    _bump(f["public_inputs"], (4, 2))
+    _bump(f["public_inputs"], (4, f["public_inputs"].shape[1] - 1))
     _bump(f["initial_evals"][0], (5, 10, 1))
     bad = [1, 2, 3, 4, 5]
     if f["step_evals"]:
@@ -789,6 +847,211 @@ PLONK_DRIVES = (
 )
 
 
+PLONKISH_DRIVES = (
+    # name, num_rows, degree_bits, proofs file, B, lanes checked on the CPU
+    ("plonkish n=2^11 B=1024", 2048, 11, "plonkish_n2048_x8.jsonl", 1024, 32),
+    ("plonkish n=2^5 B=4096", 32, 5, "plonkish_n32_x8.jsonl", 4096, 32),
+)
+
+
+def plonkish_fields(num_rows, degree_bits, proofs_file, size):
+    """PlonkishStark proofs read from JSON: (stark, config, shape, fields
+    tiled to `size` lanes)."""
+    stark_ = PlonkishStark(num_rows)
+    config = StarkConfig.standard_fast_config()
+    shape = proof_shape(stark_, config, degree_bits)
+    proofs = proof_json.read_jsonl(os.path.join(FIXTURES, proofs_file),
+                                   proof_json.proof_from_json)
+    return (stark_, config, shape,
+            tile_fields(witness.proof_u64_fields(proofs, shape), size))
+
+
+def drive_plonkish(name, num_rows, degree_bits, proofs_file, size, lanes,
+                   device_line):
+    """PlonkishStark proofs read from JSON, tiled to the batch, through
+    `build_verifier` (`drive_batch`, tampered by `tamper`): K1, K2 and K3
+    (the 7-wide trace oracle's leaves, at n=2^11 also the folds' 32-wide
+    step leaves) launch, K4-K9 do not."""
+    stark_, config, shape, fields = plonkish_fields(num_rows, degree_bits,
+                                                    proofs_file, size)
+    return drive_batch(
+        name, build_verifier(stark_, config, degree_bits),
+        lambda f, dev: witness.batch_from_u64(f, shape, dev), fields, size,
+        ("K1", "K2", "K3"), tamper, lanes, device_line)
+
+
+def spec_request(rid, spec):
+    """A service request of the lanes of `spec` (as `parallel/dryrun.py:
+    world_verdicts` takes it): its proofs' JSON dicts, tampered lanes
+    included."""
+    return {"id": rid, "stark": {"family": spec["family"],
+                                 "num_rows": spec["num_rows"]},
+            "hasher": spec.get("hasher", GLH),
+            "format": spec.get("format", "native"),
+            "proofs": lane_docs(spec, range(spec["size"]),
+                                fixtures.read_docs(spec["fixture"]))}
+
+
+# the serve drive's requests: (id, the lanes as `tiled_batch` builds them)
+SERVE_REQUESTS = (
+    ("fibonacci n=32 GL native", {
+        "fixture": "fib_stark_n32_x8.jsonl", "family": "fibonacci",
+        "num_rows": 32, "size": 3, "tampers": {"1": "public_input"}}),
+    ("plonkish n=2^11 GL native B=1024", {
+        "fixture": "plonkish_n2048_x8.jsonl", "family": "plonkish",
+        "num_rows": 2048, "size": 1024,
+        "tampers": {"1": "public_input", "2": "pow_witness",
+                    "3": "quotient_opening", "700": "late_sibling"}}),
+    ("plonkish n=32 GL plonky2 serde", {
+        "fixture": "plonkish_n32_x4_plonky2.jsonl", "format": "plonky2",
+        "family": "plonkish", "num_rows": 32, "size": 4,
+        "tampers": {"1": "public_input", "3": "late_sibling"}}),
+    ("fibonacci n=32 BN254 caps", {
+        "fixture": "fib_stark_n32_poseidon_bn254_x8.jsonl",
+        "family": "fibonacci", "num_rows": 32, "size": 3, "hasher": BN,
+        "tampers": {"2": "public_input"}}),
+)
+
+
+def drive_serve(device_line):
+    """A `serve.VerifierService` on the card answers a JSONL stream: the
+    four SERVE_REQUESTS, a malformed line, and the first request again.
+    Every verdict must equal the direct `build_verifier` verdict on the
+    same lanes, the tampered lanes rejected; the repeat must find its
+    verifier built (compile_s null); the malformed line gets an error
+    while the service goes on.  K1-K5 launch, K6-K9 do not.  Returns the
+    launch counts, the stream's wall time and the responses."""
+    reqs = [spec_request(rid, spec) for rid, spec in SERVE_REQUESTS]
+    lines = [json.dumps(r) for r in reqs]
+    stream = "\n".join(lines[:1] + ['{"bad json'] + lines[1:] + lines[:1])
+    svc = serve.VerifierService(DEVICE)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    counts, _ = counted("serve", lambda: svc.run(io.StringIO(stream), out),
+                        ("K1", "K2", "K3", "K4", "K5"),
+                        absent=("K6", "K7", "K8", "K9"))
+    wall = time.perf_counter() - t0
+    resp = [json.loads(line) for line in out.getvalue().splitlines()]
+    if len(resp) != 6 or set(resp[1]) != {"error"}:
+        raise AssertionError(f"serve: responses {resp}")
+    answers = [resp[0]] + resp[2:]
+    for (rid, spec), r in zip(SERVE_REQUESTS + SERVE_REQUESTS[:1], answers):
+        stark_, config, degree_bits, batch = tiled_batch(
+            {**spec, "device": DEVICE})
+        want = build_verifier(stark_, config, degree_bits,
+                              hasher=spec.get("hasher", GLH))(batch).tolist()
+        bad = sorted(int(k) for k in spec["tampers"])
+        if want != [lane not in bad for lane in range(spec["size"])]:
+            raise AssertionError(f"serve {rid}: direct verdicts reject "
+                                 f"other lanes than {bad}")
+        if r.get("id") != rid or r["verdicts"] != want:
+            raise AssertionError(f"serve {rid}: {r.get('verdicts')} differ "
+                                 f"from the direct verdicts")
+        log(f"serve {rid}: batch {r['batch']}, compile_s {r['compile_s']}, "
+            f"verify_ms {r['verify_ms']}; lanes {bad} rejected as by "
+            f"build_verifier, on {device_line}")
+    if answers[-1]["compile_s"] is not None:
+        raise AssertionError(f"serve: the repeated request rebuilt: "
+                             f"{answers[-1]}")
+    log(f"serve: {len(resp)} responses in {wall:.2f} s; the malformed line "
+        f"answered {resp[1]['error']!r}; launches {counts}")
+    return counts, wall, answers
+
+
+# the one-rank sharded and the unsharded verify are timed this many times
+# each, in turns
+SHARDED_TURNS = 8
+
+SHARDED_SPEC = {
+    "fixture": "fib_stark_n2048_x8.jsonl", "family": "fibonacci",
+    "num_rows": 2048, "size": 1024, "device": DEVICE, "backend": "gloo",
+    # lanes 5 and 700: a Merkle sibling of query 60, which only the second
+    # of two query shards verifies
+    "tampers": {"1": "public_input", "2": "pow_witness",
+                "3": "quotient_opening", "5": "late_sibling",
+                "700": "late_sibling"},
+    "meshes": [[1, 2], [2, 1]]}
+
+
+def drive_sharded(device_line):
+    """Sharded verification on the card.  A one-rank NCCL world in this
+    process runs `sharded_verifier` on the GL n=2^11 B=1024 batch of the
+    first drive, tampered by `tamper`, and must give the unsharded
+    verify's verdicts (both timed, SHARDED_TURNS times each, in turns).
+    Then a world of 2 processes on the same card (gloo: NCCL refuses two
+    ranks on one card) verifies SHARDED_SPEC under dp=1 qp=2 and dp=2
+    qp=1, each rank loading only its dp slice; the gathered verdicts must
+    equal the unsharded verify's, lanes 5 and 700 rejected.  Returns the
+    launch counts and walls of both."""
+    fib, config, shape = fibonacci_shape(2048, 11)
+    fields = tiled_fields(os.path.join(FIXTURES, "fib_stark_n2048_x32.npz"),
+                          shape, 1024)
+    bad_fields, bad = tamper(fields)
+    batch = witness.batch_from_u64(bad_fields, shape, DEVICE)
+    unsharded = build_verifier(fib, config, 11)
+    want = unsharded(batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize(f"file://{tmp}/rendezvous", 1, 0)
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"sharded: backend {dist.get_backend()}")
+            mesh = make_mesh()
+            verify = sharded_verifier(fib, config, 11, mesh)
+            local = shard_batch(batch, mesh)
+            counts, got = counted("sharded 1 rank", lambda: verify(local),
+                                  ("K1", "K2", "K3"),
+                                  absent=("K4", "K5", "K6", "K7", "K8", "K9"))
+            if not torch.equal(got, want):
+                raise AssertionError("sharded 1 rank: verdicts differ from "
+                                     "the unsharded verify's")
+            walls = {"sharded": [], "unsharded": []}
+            for _ in range(SHARDED_TURNS):
+                for tag, fn in (("sharded", lambda: verify(local)),
+                                ("unsharded", lambda: unsharded(batch))):
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    walls[tag].append(time.perf_counter() - t0)
+        finally:
+            dist.destroy_process_group()
+    one = {k: [t * 1e3 for t in v] for k, v in walls.items()}
+    log(f"sharded 1 rank (NCCL): verdicts equal the unsharded verify's "
+        f"(lanes {bad} rejected); {SHARDED_TURNS} turns of sharded, "
+        f"unsharded, ms: " + ", ".join(
+            f"{a:.2f} {b:.2f}" for a, b in zip(one["sharded"],
+                                              one["unsharded"]))
+        + f"; medians {statistics.median(one['sharded']):.2f} sharded, "
+        f"{statistics.median(one['unsharded']):.2f} unsharded, on "
+        f"{device_line}; launches {counts}")
+
+    _, _, _, b2 = tiled_batch(SHARDED_SPEC)
+    want2 = unsharded(b2).tolist()
+    bad2 = sorted(int(k) for k in SHARDED_SPEC["tampers"])
+    if want2 != [lane not in bad2 for lane in range(1024)]:
+        raise AssertionError(f"sharded: unsharded verdicts reject other "
+                             f"lanes than {bad2}")
+    t0 = time.perf_counter()
+    runs = world_verdicts(SHARDED_SPEC, 2, 600)
+    world_wall = time.perf_counter() - t0
+    if [(r["dp"], r["qp"]) for r in runs] != [(1, 2), (2, 1)]:
+        raise AssertionError(f"sharded 2 ranks: runs {runs}")
+    for r in runs:
+        if r["verdicts"] != want2:
+            raise AssertionError(f"sharded 2 ranks dp={r['dp']} qp="
+                                 f"{r['qp']}: verdicts differ from the "
+                                 f"unsharded verify's")
+        log(f"sharded 2 ranks (gloo, one card) dp={r['dp']} qp={r['qp']}: "
+            f"verdicts equal the unsharded verify's, lanes {bad2} rejected; "
+            f"rank 0 verify {r['wall_ms']:.2f} ms, launches {r['launches']}")
+    counts2 = {k: sum(r["launches"].get(k, 0) for r in runs)
+               for k in WRAPPERS}
+    log(f"sharded 2 ranks: the world took {world_wall:.2f} s with its start")
+    return counts, min(walls["sharded"]), counts2, world_wall, {
+        "one_rank_ms": one,
+        "two_ranks_verify_ms": {f"dp={r['dp']} qp={r['qp']}": r["wall_ms"]
+                                for r in runs}}
+
+
 def drive_bulk_hash(rng, device_line, lanes=1 << 17, cpu_lanes=64):
     """The batch-last bulk hashing API of `ops/poseidon.py` on `lanes`
     seeded lanes on the card (K7), each call's first `cpu_lanes` lanes held
@@ -898,6 +1161,12 @@ def main():
         counts[name], walls[name] = drive(name, *spec, device_line)
     for name, *spec in PLONK_DRIVES:
         counts[name], walls[name] = drive_plonk(name, *spec, device_line)
+    for name, *spec in PLONKISH_DRIVES:
+        counts[name], walls[name] = drive_plonkish(name, *spec, device_line)
+    counts["serve"], walls["serve"], serve_resp = drive_serve(device_line)
+    (counts["sharded 1 rank"], walls["sharded 1 rank"],
+     counts["sharded 2 ranks (rank 0)"], walls["sharded 2 ranks (rank 0)"],
+     sharded_ms) = drive_sharded(device_line)
     counts["GL bulk hash"], walls["GL bulk hash"] = drive_bulk_hash(
         rng, device_line)
     counts["SOL probes"], walls["SOL probes"], sol_rows = drive_sol()
@@ -936,6 +1205,10 @@ def main():
             "matched": True, **kstats[k]})
     print(json.dumps({"kernels": kernels, "card": device_line,
                       "sol_probes": sol_rows, "bn254_probes": micro_rows,
+                      "serve": [{k: r[k] for k in ("id", "batch",
+                                                   "compile_s", "verify_ms")}
+                                for r in serve_resp],
+                      "sharded_ms": sharded_ms,
                       "wall_ms": {d: w * 1e3 for d, w in walls.items()}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

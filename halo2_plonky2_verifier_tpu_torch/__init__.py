@@ -12,7 +12,8 @@ built with nvcc at first use.  The bulk Goldilocks hashing API is
 `ops/poseidon.py` (`permute`, `absorb`, `hash_no_pad`, `two_to_one`).
 
 Public API:
-    build_verifier(stark, config, degree_bits, hasher=..., transcript=...)
+    build_verifier(stark, config, degree_bits, check_vanishing=True,
+                   hasher=..., query_shard=None, transcript=...)
         -> verify(batch) -> (B,) bool; hasher and transcript are each
         "poseidon_goldilocks" (default) or "poseidon_bn254"
     witness.proof_shape / witness.load_batch_npz / witness.batch_from_numpy
@@ -23,7 +24,12 @@ Public API:
         circuit.load_circuit(path) -> (common, verifier_data, doc);
         plonk.load_plonk_proofs(proofs, shape, verifier_data, device="cuda")
     StarkConfig.standard_fast_config()
-    models.fibonacci.FibonacciStark
+    models.fibonacci.FibonacciStark, models.plonkish.PlonkishStark
+    serve.VerifierService(device="cuda"): the JSONL verification service
+        (`tools/torch_serve.py` on the command line)
+    parallel.mesh.make_mesh / shard_batch / sharded_verifier and
+        parallel.distributed: proofs over dp, FRI query rounds over qp, on
+        torch.distributed process groups
 """
 
 from .plonk import (PlonkProofBatch, PlonkProofShape, build_plonk_verifier,

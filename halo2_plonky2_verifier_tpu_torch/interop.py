@@ -33,7 +33,8 @@ from .proof_json import (PLONK_OPENING_FIELDS, FriInitialTreeProof, FriProof,
                          FriQueryRound, FriQueryStep, MerkleProof,
                          PlonkOpeningSet, PlonkProof,
                          PlonkProofWithPublicInputs, StarkOpeningSet,
-                         StarkProof, StarkProofWithPublicInputs)
+                         StarkProof, StarkProofWithPublicInputs,
+                         proof_from_json)
 
 
 def _hash_dec(d):
@@ -128,3 +129,9 @@ def plonk_proof_from_plonky2_json(s) -> PlonkProofWithPublicInputs:
                 for k in PLONK_OPENING_FIELDS}),
             opening_proof=fri_proof_dec(p["opening_proof"])),
         public_inputs=[int(x) for x in doc["public_inputs"]])
+
+
+# a STARK proof's reader by the name of its format: the repo's JSON
+# ("native") or plonky2's serde JSON
+READERS = {"native": proof_from_json,
+           "plonky2": stark_proof_from_plonky2_json}

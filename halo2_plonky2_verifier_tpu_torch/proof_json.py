@@ -70,6 +70,16 @@ class StarkProof:
     openings: StarkOpeningSet
     opening_proof: FriProof
 
+    def recover_degree_bits(self, config) -> int:
+        """The trace's degree bits from the first initial Merkle proof's
+        depth (a copy of `refimpl/proof.py:77-81`; reference:
+        verifier/src/stark/mod.rs:82-89)."""
+        initial_merkle_proof = (self.opening_proof.query_round_proofs[0]
+                                .initial_trees_proof.evals_proofs[0][1])
+        lde_bits = (config.fri_config.cap_height
+                    + len(initial_merkle_proof.siblings))
+        return lde_bits - config.fri_config.rate_bits
+
 
 @dataclass
 class StarkProofWithPublicInputs:

@@ -1,11 +1,11 @@
 """Top-level batched STARK verification in PyTorch.
 
-`build_verifier(stark, config, degree_bits, hasher, transcript)` returns
-`verify(batch) -> (B,) bool`: the challenge derivation through one
-transcript run, the vanishing-polynomial / quotient consistency check at
-zeta, and FRI with every Merkle path.  Counterpart of
-`halo2_plonky2_verifier_tpu/stark.py:build_verifier`, for both of its
-hashers and both of its transcripts:
+`build_verifier(stark, config, degree_bits, check_vanishing, hasher,
+query_shard, transcript)` returns `verify(batch) -> (B,) bool`: the
+challenge derivation through one transcript run, the vanishing-polynomial /
+quotient consistency check at zeta, and FRI with every Merkle path.
+Counterpart of `halo2_plonky2_verifier_tpu/stark.py:build_verifier`, for
+both of its hashers and both of its transcripts:
 
   hasher "poseidon_goldilocks": Merkle leaves through K3, paths through K1;
   hasher "poseidon_bn254":      leaves through K5, paths through K4;
@@ -14,11 +14,18 @@ hashers and both of its transcripts:
 
 A verification runs on the device of the batch it is given: on a CUDA batch
 every kernel of the path launches; on a CPU batch their plain versions run.
+
+With a `QueryShard` the verifier checks one of `count` equal slices of the
+FRI query rounds (`parallel/mesh.py`): every rank runs the transcript and
+the vanishing check, verifies its own queries, and the verdict is AND-reduced
+over the shard's process group.
 """
 
 from itertools import product as iter_product
+from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from .fri import verify_fri
 from .hashing import get_hash_ops
@@ -26,7 +33,18 @@ from .ops import goldilocks as gl
 from .ops import goldilocks_ext as gle
 from .transcript import (BN254TranscriptSchedule, TranscriptSchedule, extract,
                          extract_ext, run_schedule, run_schedule_bn254)
-from .witness import ProofBatch, canonicality_verdict, proof_shape
+from .utils.logging import get_logger
+from .witness import (QUERY_FIELDS, ProofBatch, canonicality_verdict,
+                      proof_shape)
+
+
+class QueryShard(NamedTuple):
+    """This rank's place among the query shards: shard `index` of `count`,
+    the AND of the verdicts taken over `group` (a torch.distributed process
+    group of `count` ranks)."""
+    index: int
+    count: int
+    group: Any
 
 
 class CollectingConsumer:
@@ -257,18 +275,50 @@ def challenge_stream(batch, transcript="poseidon_goldilocks"):
     return sched, elements, refs
 
 
-def build_verifier(stark, config, degree_bits,
-                   hasher="poseidon_goldilocks",
+def and_over_group(verdict, group):
+    """The AND of a (B,) bool verdict over the ranks of `group`: all_reduce
+    (MIN) of an int32 copy, the counterpart of JAX's `pmin`.  Under gloo the
+    copy crosses on the host; under NCCL on the card."""
+    v = verdict.to(torch.int32)
+    if dist.get_backend(group) != "nccl":
+        v = v.cpu()
+    dist.all_reduce(v, op=dist.ReduceOp.MIN, group=group)
+    return v.to(verdict.device) == 1
+
+
+def build_verifier(stark, config, degree_bits, check_vanishing=True,
+                   hasher="poseidon_goldilocks", query_shard=None,
                    transcript="poseidon_goldilocks"):
     """Returns verify(batch: ProofBatch) -> (B,) bool tensor.  `hasher`
     selects the Merkle commitment hash and `transcript` the Fiat-Shamir
     sponge, each "poseidon_goldilocks" or "poseidon_bn254"; any other name
-    raises ValueError."""
+    raises ValueError.  `check_vanishing=False` leaves the quotient check at
+    zeta out of the verdict.
+
+    `query_shard` (a `QueryShard`): `verify` takes a batch whose
+    query-indexed fields (`witness.QUERY_FIELDS`) hold this shard's
+    Q / count queries, starting at index * Q / count (as
+    `parallel.mesh.shard_batch` slices them), and AND-reduces the verdict
+    over the shard's group.  `count` must divide the number of queries."""
     get_hash_ops(hasher)
     if transcript not in TRANSCRIPTS:
         raise ValueError(f"unknown transcript {transcript!r}")
     run = TRANSCRIPTS[transcript][1]
     shape = proof_shape(stark, config, degree_bits, hasher)
+    q_local = shape.num_queries
+    if query_shard is not None:
+        if (query_shard.count < 1 or shape.num_queries % query_shard.count
+                or not 0 <= query_shard.index < query_shard.count):
+            raise ValueError(
+                f"query shard {query_shard.index} of {query_shard.count}: "
+                f"the count must divide {shape.num_queries} queries")
+        q_local = shape.num_queries // query_shard.count
+    get_logger(__name__).info(
+        "build_verifier: %s n=2^%d queries=%d arities=%s hasher=%s "
+        "transcript=%s vanishing=%s qshard=%s", type(stark).__name__,
+        degree_bits, shape.num_queries, list(shape.reduction_arity_bits),
+        hasher, transcript, check_vanishing,
+        None if query_shard is None else query_shard[:2])
 
     def verify(batch: ProofBatch):
         S = batch.shape
@@ -276,6 +326,13 @@ def build_verifier(stark, config, degree_bits,
             raise ValueError(f"batch shape {S} does not match {shape}")
         B = batch.batch_size
         dev = batch.device
+        if query_shard is not None:
+            for f in QUERY_FIELDS:
+                for t in getattr(batch, f):
+                    if t.shape[1] != q_local:
+                        raise ValueError(
+                            f"{f}: {t.shape[1]} queries, expected this "
+                            f"shard's {q_local}")
         verdict = canonicality_verdict(batch)
 
         # 1. transcript: one sponge run over the observed element stream
@@ -291,6 +348,9 @@ def build_verifier(stark, config, degree_bits,
         q_steps = torch.tensor([r.step for r in refs["queries"]], device=dev)
         q_lanes = torch.tensor([r.lane for r in refs["queries"]], device=dev)
         query_lo = ys[q_steps, q_lanes].T & 0xFFFFFFFF          # (B, Q)
+        if query_shard is not None:
+            start = query_shard.index * q_local
+            query_lo = query_lo[:, start:start + q_local]
         perm_challenges = None
         if S.uses_permutation:
             perm_challenges = [
@@ -335,7 +395,8 @@ def build_verifier(stark, config, degree_bits,
         for i, acc in enumerate(accumulators):
             chunk = quot_rows[i * factor:(i + 1) * factor]
             recombined = gle.reduce_with_powers(chunk, zeta_pow_n)
-            verdict = verdict & gle.eq(gle.mul(z_h_zeta, recombined), acc)
+            if check_vanishing:
+                verdict = verdict & gle.eq(gle.mul(z_h_zeta, recombined), acc)
 
         # 4. FRI
         zeta_next = gle.scalar_mul(zeta, gl.full((B,), g_sub, dev))
@@ -356,6 +417,9 @@ def build_verifier(stark, config, degree_bits,
                                  (zeta_next, zeta_next_polys)],
             "openings_batches": [openings_zeta, openings_zeta_next],
         }
-        return verify_fri(shape, batch, challenges, verdict)
+        verdict = verify_fri(shape, batch, challenges, verdict)
+        if query_shard is not None:
+            verdict = and_over_group(verdict, query_shard.group)
+        return verdict
 
     return verify

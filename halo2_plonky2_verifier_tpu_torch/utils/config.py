@@ -76,3 +76,15 @@ class StarkConfig:
 
     def fri_params(self, degree_bits: int) -> FriParams:
         return self.fri_config.fri_params(degree_bits)
+
+
+def make_config(cfg):
+    """The StarkConfig of a service request's "config" (absent or empty:
+    standard_fast_config)."""
+    if not cfg:
+        return StarkConfig.standard_fast_config()
+    fri_keys = ("rate_bits", "cap_height", "proof_of_work_bits",
+                "num_query_rounds")
+    fri = FriConfig(**{k: cfg[k] for k in fri_keys if k in cfg})
+    return StarkConfig(num_challenges=cfg.get("num_challenges", 2),
+                       fri_config=fri)

@@ -151,6 +151,10 @@ _OPTIONAL = ("zs_cap", "permutation_zs", "permutation_zs_next")
 HASH_FIELDS = ("trace_cap", "zs_cap", "quotient_cap", "commit_caps",
                "initial_siblings", "step_siblings")
 assert set(_FIELDS) == {f.name for f in fields(ProofBatch)} - {"shape"}
+# the fields indexed by FRI query round on axis 1, which a query shard
+# holds in part (the JAX package's parallel/mesh.py:71-74)
+QUERY_FIELDS = ("initial_evals", "initial_siblings", "step_evals",
+                "step_siblings")
 
 
 def _leaf_counts(shape):

@@ -376,6 +376,9 @@ def test_port_verifies_in_a_process_without_jax():
                       "fib_stark_n32_poseidon_bn254_bn254sponge_x8.npz"),
          os.path.join(FIXTURES, "plonk_circuit_recmix_s60.json"),
          os.path.join(FIXTURES, "plonk_recmix_s60_x4.jsonl")],
-        capture_output=True, text=True, timeout=300, cwd=REPO)
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        # one torch thread: beside other test processes a full thread pool
+        # contends for the same cores and runs many times slower
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert out.returncode == 0, out.stderr[-4000:]
     assert "verified without jax" in out.stdout

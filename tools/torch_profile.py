@@ -3,7 +3,8 @@
 For each drive of `chip_smoke.py` (FibonacciStark n=2^11 B=1024 and n=2^5
 B=4096 under Goldilocks caps and transcript; the same two sizes under BN254
 caps with the Goldilocks transcript; n=2^5 B=4096 all-BN254; the PLONK
-recmix circuit at B=4096, read from JSON), this builds
+recmix circuit at B=4096, read from JSON; PlonkishStark n=2^11 B=1024 and
+n=2^5 B=4096, read from JSON), this builds
 the kernels, times three warm `verify(batch)` calls without the profiler,
 then traces one more under `torch.profiler` (CPU and CUDA activities) and
 writes:
@@ -20,7 +21,9 @@ writes:
 
 With --census (on the CPU; no card) it instead counts the PLONK drives'
 launches: one verify's aten ops less views, each kernel one launch, and
-those of its vanishing terms at zeta (<out>/plonk_census.json).
+those of its vanishing terms at zeta (<out>/plonk_census.json); and the
+plonkish drives' launches, one verify of one proof at n=2^11 and at n=2^5
+(<out>/plonkish_census.json).
 
 With --clock-probe it instead asks why K4 and K5 take less time inside a
 verify than back to back (as `chip_smoke.py` times them).  On the BN254
@@ -33,7 +36,8 @@ samples the SM clock, power draw and temperature every 20 ms throughout;
 
 Usage: python3 tools/torch_profile.py [--out DIR] [--drives TAGS]
        [--census] [--clock-probe] (default DIR build/torch_profile; TAGS a
-       comma-separated subset such as plonk_recmix_s60_B4096).  Needs one
+       comma-separated subset such as plonk_recmix_s60_B4096 or
+       plonkish_n2048_B1024,plonkish_n32_B4096).  Needs one
        CUDA card and nvcc; imports no jax.
 """
 
@@ -57,7 +61,8 @@ import numpy as np  # noqa: E402
 
 from chip_smoke import (BN, FIXTURES, GLH, LOGUP, RECMIX,  # noqa: E402
                         RECURSIVE_FIB, SEED, fibonacci_shape, path_inputs,
-                        plonk_fields, rand_fr, rand_gl, tiled_fields)
+                        plonk_fields, plonkish_fields, rand_fr, rand_gl,
+                        tiled_fields)
 from halo2_plonky2_verifier_tpu_torch import (build_verifier,  # noqa: E402
                                               hashing, plonk, witness)
 from halo2_plonky2_verifier_tpu_torch.ops import _build  # noqa: E402
@@ -78,6 +83,11 @@ SIZES = (
 )
 # tag, circuit, B: the PLONK recmix drive of chip_smoke.py
 PLONK_SIZES = (("plonk_recmix_s60_B4096", RECMIX, 4096),)
+# tag, n, degree_bits, proofs file, B: the plonkish drives of chip_smoke.py
+PLONKISH_SIZES = (
+    ("plonkish_n2048_B1024", 2048, 11, "plonkish_n2048_x8.jsonl", 1024),
+    ("plonkish_n32_B4096", 32, 5, "plonkish_n32_x8.jsonl", 4096),
+)
 PORT_KERNELS = ("merkle_path_kernel", "transcript_kernel",
                 "leaf_sponge_kernel", "bn254_path_kernel", "bn254_leaf_kernel",
                 "bn254_permute_kernel", "permute_kernel")
@@ -100,6 +110,21 @@ def profile_size(num_rows, degree_bits, fixture, size, hasher, transcript):
     verify = build_verifier(fib, config, degree_bits, hasher=hasher,
                             transcript=transcript)
     return profile_verify(verify, batch, f"n={num_rows} B={size}")
+
+
+def plonkish_batch(num_rows, degree_bits, proofs_file, size, device):
+    """(verify, batch) of a plonkish drive of `chip_smoke.py`, on
+    `device`."""
+    stark_, config, shape, fields = plonkish_fields(num_rows, degree_bits,
+                                                    proofs_file, size)
+    return (build_verifier(stark_, config, degree_bits),
+            witness.batch_from_u64(fields, shape, device))
+
+
+def profile_plonkish(num_rows, degree_bits, proofs_file, size):
+    verify, batch = plonkish_batch(num_rows, degree_bits, proofs_file, size,
+                                   "cuda")
+    return profile_verify(verify, batch, f"plonkish n={num_rows} B={size}")
 
 
 def profile_plonk(circuit, size):
@@ -320,15 +345,37 @@ class _LaunchCount(TorchDispatchMode):
         return run
 
 
-def census(out):
-    """The PLONK drives' launch model on the CPU: per circuit, the launches
-    of one `build_plonk_verifier` verify (aten ops less views, each of K1,
-    K2, K3 and K7 counted as one launch), and those of its vanishing terms
-    at zeta (`circuit/vanishing.py:eval_vanishing_terms`) among them."""
+def _counted_verify(counter, verify, batch):
+    """verify(batch) under `counter`, each of K1, K2, K3 and K7 counted as
+    one launch."""
     from halo2_plonky2_verifier_tpu_torch import transcript
     from halo2_plonky2_verifier_tpu_torch.ops import (merkle_kernels,
                                                       poseidon_kernels)
 
+    patched = [(hashing.GLHashOps, "verify_paths"),
+               (merkle_kernels, "hash_no_pad_planes"),
+               (transcript.transcript_kernels, "run_steps_planes"),
+               (poseidon_kernels, "permute_planes")]
+    saved = [getattr(o, a) for o, a in patched]
+    for (o, a), fn in zip(patched, saved):
+        setattr(o, a, staticmethod(counter.kernel(fn))
+                if isinstance(o, type) else counter.kernel(fn))
+    try:
+        with counter:
+            return verify(batch)
+    finally:
+        for (o, a), fn in zip(patched, saved):
+            setattr(o, a, staticmethod(fn) if isinstance(o, type) else fn)
+
+
+def census(out):
+    """The launch model on the CPU (aten ops less views, each of K1, K2, K3
+    and K7 counted as one launch).  PLONK drives: per circuit, the
+    launches of one `build_plonk_verifier` verify, and those of its
+    vanishing terms at zeta (`circuit/vanishing.py:eval_vanishing_terms`)
+    among them (plonk_census.json).  Plonkish drives: the launches of one
+    `build_verifier` verify of one proof at each size
+    (plonkish_census.json)."""
     result = {}
     for tag, circuit in (("plonk_recmix_s60", RECMIX),
                          ("recursive_fib_n8", RECURSIVE_FIB),
@@ -345,28 +392,30 @@ def census(out):
             vanishing.append(counter.n - n0)
             return out
 
-        patched = [(hashing.GLHashOps, "verify_paths"),
-                   (merkle_kernels, "hash_no_pad_planes"),
-                   (transcript.transcript_kernels, "run_steps_planes"),
-                   (poseidon_kernels, "permute_planes")]
-        saved = [getattr(o, a) for o, a in patched]
-        for (o, a), fn in zip(patched, saved):
-            setattr(o, a, staticmethod(counter.kernel(fn))
-                    if isinstance(o, type) else counter.kernel(fn))
         plonk.eval_vanishing_terms = counted_vanishing
         try:
-            with counter:
-                ok = plonk.build_plonk_verifier(common, vd)(batch)
+            ok = _counted_verify(counter, plonk.build_plonk_verifier(
+                common, vd), batch)
         finally:
             plonk.eval_vanishing_terms = eval_vanishing
-            for (o, a), fn in zip(patched, saved):
-                setattr(o, a, staticmethod(fn) if isinstance(o, type) else fn)
         if not bool(ok.all()):
             raise AssertionError(f"census {tag}: the proof was rejected")
         result[tag] = {"verify_launches": counter.n,
                        "vanishing_launches": vanishing[0]}
         print(tag, json.dumps(result[tag]), flush=True)
     with open(os.path.join(out, "plonk_census.json"), "w") as f:
+        json.dump(result, f, indent=1)
+
+    result = {}
+    for tag, num_rows, degree_bits, proofs_file, _ in PLONKISH_SIZES:
+        verify, batch = plonkish_batch(num_rows, degree_bits, proofs_file, 1,
+                                       "cpu")
+        counter = _LaunchCount()
+        if not bool(_counted_verify(counter, verify, batch).all()):
+            raise AssertionError(f"census {tag}: the proof was rejected")
+        result[tag] = {"verify_launches": counter.n}
+        print(tag, json.dumps(result[tag]), flush=True)
+    with open(os.path.join(out, "plonkish_census.json"), "w") as f:
         json.dump(result, f, indent=1)
 
 
@@ -396,6 +445,7 @@ def main():
 
     runs = [(tag, profile_size, spec) for tag, *spec in SIZES]
     runs += [(tag, profile_plonk, spec) for tag, *spec in PLONK_SIZES]
+    runs += [(tag, profile_plonkish, spec) for tag, *spec in PLONKISH_SIZES]
     if args.drives:
         runs = [r for r in runs if r[0] in args.drives.split(",")]
     summaries = {}
