@@ -20,7 +20,11 @@ Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
      permutation, 2^17 and 2^21 states and the PLONK public-input hash's
      4096; also compared at 2^17 + 1),
      K8 (64 chained Goldilocks permutations on 2^18 states; also compared
-     at chain 0 and 1 on 2^18 + 1) and K9 (every run of
+     at chain 0 and 1 on 2^18 + 1), K10 (the gl_mul speed-of-light probe,
+     256 dependent products on 8 x 2^21 elements, compared on a sample of
+     lanes; also on every lane at chain 0, 1 and 2 on 8 x (2^21 + 1); the
+     first lanes of both factors the Goldilocks edge values; its registers
+     and spill from ptxas) and K9 (every run of
      `tools/torch_bn254_micro.py`: the probes of the BN254 body's functions
      at 2^16 lanes, and the u32, f32 and wide multiplier probes at 1, 4 and
      8 lanes a thread on 2^20 lanes, chain 64), each against its plain
@@ -91,9 +95,17 @@ Drives `halo2_plonky2_verifier_tpu_torch` on the card, in phases:
      f. GL bulk hash: the batch-last `permute`, `hash_no_pad` at k = 8, 13
         and 60 and `two_to_one` of `ops/poseidon.py`, each on 2^17 seeded
         lanes (K7), the first 64 lanes equal to the plain path on the CPU;
-     g. SOL probes: `tools/torch_sol_bench.py:measure_poseidon_sol` (K7, K8,
-        K1), each probe's M perm/s and share of its bound;
-     h. BN254 component probes: `tools/torch_bn254_micro.py:measure` (K9),
+     g. census: `utils/profiling.py` takes the op census of one proof on
+        the card, the kernels running (`drive_census`): GL n=2^11 (K1-K3),
+        GL n=2^5 (K1, K2) and the PLONK recmix circuit (K1-K3, K7); every
+        total must equal its `CENSUS_ANCHORS` entry;
+     h. SOL probes: `tools/torch_sol_bench.py:measure_poseidon_sol` (K7, K8,
+        K1), each probe's M perm/s and share of its bound, and
+        `measure_gl_mul_sol` (K10), the Goldilocks products a second and
+        their share of the bound; then, on a line of its own, the port's
+        figures of BASELINE.json's second metric: gl_mul per proof (the
+        census) x each GL drive's proofs/s, and its percent of K10's rate;
+     i. BN254 component probes: `tools/torch_bn254_micro.py:measure` (K9),
         ns per iteration per lane of each run, each run's time beside its
         time in phase 3, the sum of the rounds beside the permutation, the
         partial round's x2/x1 ratio, and each multiplier run's multiplies a
@@ -133,6 +145,7 @@ from halo2_plonky2_verifier_tpu_torch.ops import bn254 as fr
 from halo2_plonky2_verifier_tpu_torch.ops import bn254_kernels as bk
 from halo2_plonky2_verifier_tpu_torch.ops import bn254_micro_kernels as mk9
 from halo2_plonky2_verifier_tpu_torch.ops import goldilocks as gl
+from halo2_plonky2_verifier_tpu_torch.ops import goldilocks_kernels as glk
 from halo2_plonky2_verifier_tpu_torch.ops import merkle_kernels as mk
 from halo2_plonky2_verifier_tpu_torch.ops import poseidon as pos
 from halo2_plonky2_verifier_tpu_torch.ops import poseidon_kernels as pk
@@ -144,11 +157,13 @@ from halo2_plonky2_verifier_tpu_torch.parallel.dryrun import (lane_docs,
 from halo2_plonky2_verifier_tpu_torch.parallel.mesh import (make_mesh,
                                                             shard_batch,
                                                             sharded_verifier)
+from halo2_plonky2_verifier_tpu_torch.utils import profiling
 from halo2_plonky2_verifier_tpu_torch.utils.roofline import (BN_MONT_MUL,
                                                             BN_PERM_MULS,
                                                             BN_REDC,
                                                             GL_PERM_MULS,
-                                                            bound)
+                                                            bound,
+                                                            gl_mul_chain)
 from halo2_plonky2_verifier_tpu_torch.utils.timing import cuda_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -166,7 +181,22 @@ WRAPPERS = {"K1": mk.verify_paths_planes, "K2": tk.run_steps_planes,
             "K3": mk.hash_no_pad_planes, "K4": bk.verify_paths_mont_planes,
             "K5": bk.hash_or_noop_mont_planes, "K6": bk.permute_planes,
             "K7": pk.permute_planes, "K8": pk.permute_planes_chained,
-            "K9": mk9.run_probe}
+            "K9": mk9.run_probe, "K10": glk.mul_chain}
+
+# The op census of one proof that the census drive holds the card to: the
+# JAX package's census (tests/fixtures/census_anchors.json, written by
+# tools/gen_torch_census_anchors.py) with the port's divergences in the
+# vanishing_poly_check scope (ROADMAP.md §3), pinned by
+# tests/test_torch_census.py.  JAX: GL n=2^11 2,008,372 / 1,503,104 /
+# 4,089; recmix 846,987 / 633,314 / 1,476.
+CENSUS_ANCHORS = {
+    "gl_n2048": {"gl_mul": 2_008_436, "gl_add": 1_503_168,
+                 "poseidon_permute": 4_089},
+    "gl_n32": {"gl_mul": 289_090, "gl_add": 216_036,
+               "poseidon_permute": 551},
+    "plonk_recmix_s60": {"gl_mul": 746_631, "gl_add": 584_158,
+                         "poseidon_permute": 1_476},
+}
 
 
 def log(msg):
@@ -618,6 +648,32 @@ def check_kernels(rng, B=1024, Q=84):
             torch_bn254_micro.probe_bound(name, n9, chain9),
             (lambda x=x, name=name, t=threads, k=k:
              mk9.run_probe(name, x, chain9, t, k)), launch9))
+
+    # K10: the gl_mul speed-of-light probe of tools/torch_sol_bench.py, chain
+    # 256 over 8 x 2^21 elements, the plain version on 4096 lanes of each
+    # row, the first lanes of x and y the edge values; also compared (not
+    # timed) on every lane at chain 0, 1 and 2 on a ragged 8 x (2^21 + 1)
+    n10, chain10 = 1 << 21, 256
+    x10, y10 = (gl.from_u64(rand_gl(rng, (8, n10)), DEVICE) for _ in "xy")
+    with_gl_edges(x10)
+    with_gl_edges(y10, shift=3)
+    pick10 = sample_lanes(n10, 1, 4096)
+    xs10, ys10 = x10[:, pick10].contiguous(), y10[:, pick10].contiguous()
+    cases["K10"] = [(lambda: glk.mul_chain(x10, y10, chain10),
+                     lambda: glk.mul_chain_plain(xs10, ys10, chain10), pick10,
+                     f"chain={chain10} N=8x{n10} (plain on "
+                     f"N=8x{pick10.numel()})",
+                     bound(*gl_mul_chain(x10.numel(), chain10)), None,
+                     lambda: {"ptxas": torch_bn254_micro.ptxas_usage(
+                         (_build.BUILD_DIR / "gl_mul_chain.log").read_text())})]
+    x10r, y10r = (gl.from_u64(rand_gl(rng, (8, n10 + 1)), DEVICE)
+                  for _ in "xy")
+    with_gl_edges(x10r)
+    with_gl_edges(y10r, shift=3)
+    checks["K10"] = [
+        ((lambda c=c: glk.mul_chain(x10r, y10r, c)),
+         (lambda c=c: glk.mul_chain_plain(x10r, y10r, c)),
+         f"chain={c} N=8x{n10 + 1}") for c in (0, 1, 2)]
 
     for name, parts in checks.items():
         for kernel, plain, what in parts:
@@ -1091,18 +1147,82 @@ def drive_bulk_hash(rng, device_line, lanes=1 << 17, cpu_lanes=64):
 
 
 def drive_sol():
-    """`measure_poseidon_sol` on the card (K7, K8, K1); returns the launch
-    counts, the wall time and the probes' rows."""
+    """`measure_poseidon_sol` (K7, K8, K1) and `measure_gl_mul_sol` (K10,
+    8 x 2^21 elements, chain 256) on the card; returns the launch counts,
+    the wall time, the probes' rows and the gl_mul row."""
     t0 = time.perf_counter()
-    counts, (pps, _, rows) = counted(
-        "SOL probes",
-        lambda: torch_sol_bench.measure_poseidon_sol(device=DEVICE, log=log),
-        ("K7", "K8", "K1"))
+
+    def run():
+        return (torch_sol_bench.measure_poseidon_sol(device=DEVICE, log=log),
+                torch_sol_bench.measure_gl_mul_sol(device=DEVICE))
+
+    counts, ((pps, _, rows), (rate, sec)) = counted(
+        "SOL probes", run, ("K7", "K8", "K1", "K10"))
     if not all(math.isfinite(r["perm_per_sec"]) and r["perm_per_sec"] > 0
-               for r in rows):
-        raise AssertionError(f"SOL probes: rates {rows}")
-    log(f"SOL probes: best {pps / 1e6:.2f} M perm/s; launches {counts}")
-    return counts, time.perf_counter() - t0, rows
+               for r in rows) or not (math.isfinite(rate) and rate > 0):
+        raise AssertionError(f"SOL probes: rates {rows}, gl_mul {rate}")
+    b_ms, b_by = bound(*gl_mul_chain(8 << 21, 256))
+    mul = {"gl_mul_per_sec": rate, "ms_per_rep": sec * 1e3,
+           "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / (sec * 1e3)}
+    log(f"SOL probes: best {pps / 1e6:.2f} M perm/s; gl_mul (K10, 8 x 2^21, "
+        f"chain 256) {rate / 1e9:.3f} G mul/s, {sec * 1e3:.4f} ms/rep, bound "
+        f"{b_ms:.4f} ms ({b_by}), share {mul['share']:.4f}; launches "
+        f"{counts}")
+    return counts, time.perf_counter() - t0, rows, mul
+
+
+# the census drive: (anchor, kernels launched, (verify, one-proof batch on
+# the card))
+def _census_cases():
+    def fib(num_rows, degree_bits, fixture):
+        f, config, shape = fibonacci_shape(num_rows, degree_bits)
+        leaves = witness.npz_leaves(os.path.join(FIXTURES, fixture))
+        return (build_verifier(f, config, degree_bits),
+                witness.batch_from_numpy([x[:1] for x in leaves], shape,
+                                         DEVICE))
+
+    def recmix():
+        common, vd, shape, fields = plonk_fields(RECMIX, 1)
+        return (plonk.build_plonk_verifier(common, vd),
+                plonk.plonk_batch_from_u64(fields, shape, DEVICE))
+
+    return (("gl_n2048", ("K1", "K2", "K3"),
+             lambda: fib(2048, 11, "fib_stark_n2048_x32.npz")),
+            ("gl_n32", ("K1", "K2"),
+             lambda: fib(32, 5, "fib_stark_n32_x32.npz")),
+            ("plonk_recmix_s60", ("K1", "K2", "K3", "K7"), recmix))
+
+
+def drive_census():
+    """`profiling.profile_verifier` of one proof on the card, the kernels
+    running: GL n=2^11, GL n=2^5 and the PLONK recmix circuit.  Each total
+    must equal its `CENSUS_ANCHORS` entry.  Returns the launch counts, the
+    wall time and {anchor: totals}."""
+    t0 = time.perf_counter()
+    out, all_counts = {}, {}
+    for name, expected, make in _census_cases():
+        verify, batch = make()
+
+        def run():
+            with profiling.profile() as tree:
+                ok = verify(batch)
+            return ok, tree
+
+        counts, (ok, tree) = counted(f"census {name}", run, expected)
+        if not bool(ok.all()):
+            raise AssertionError(f"census {name}: the proof was rejected")
+        want = CENSUS_ANCHORS[name]
+        got = {m: tree.root.total(m) for m in want}
+        if got != want:
+            raise AssertionError(f"census {name}: {got}, anchor {want}")
+        scopes = {c.name: c.total("gl_mul")
+                  for c in tree.root.children.values()}
+        log(f"census {name}: {got} equal to the anchor; gl_mul by scope "
+            f"{scopes}; launches {counts}")
+        out[name] = got
+        for k, v in counts.items():
+            all_counts[k] = all_counts.get(k, 0) + v
+    return all_counts, time.perf_counter() - t0, out
 
 
 def drive_bn254_micro(checked):
@@ -1169,9 +1289,25 @@ def main():
      sharded_ms) = drive_sharded(device_line)
     counts["GL bulk hash"], walls["GL bulk hash"] = drive_bulk_hash(
         rng, device_line)
-    counts["SOL probes"], walls["SOL probes"], sol_rows = drive_sol()
+    counts["census"], walls["census"], census = drive_census()
+    counts["SOL probes"], walls["SOL probes"], sol_rows, mul_sol = drive_sol()
     (counts["BN254 component probes"], walls["BN254 component probes"],
      micro_rows) = drive_bn254_micro(kstats["K9"]["parts"])
+
+    # BASELINE.json's second metric, the port's figures: census gl_mul per
+    # proof x the GL drives' proofs/s, over K10's gl_mul rate
+    speed_of_light = {}
+    for anchor, drive_name, size in (("gl_n2048", "GL n=2^11 B=1024", 1024),
+                                     ("gl_n32", "GL n=2^5 B=4096", 4096)):
+        per_proof = census[anchor]["gl_mul"]
+        rate = per_proof * size / walls[drive_name]
+        speed_of_light[drive_name] = {
+            "gl_mul_per_proof": per_proof, "proofs_per_sec":
+            size / walls[drive_name], "gl_mul_per_sec": rate,
+            "pct_speed_of_light": 100 * rate / mul_sol["gl_mul_per_sec"]}
+    log("gl_mul speed of light: " + json.dumps(
+        {"sol_gl_mul_per_sec": mul_sol["gl_mul_per_sec"],
+         "drives": speed_of_light, "card": device_line}))
 
     # 5. the kernels line, then the contract's last line
     src = "halo2_plonky2_verifier_tpu_torch/ops/csrc/"
@@ -1193,6 +1329,8 @@ def main():
         "K8": ("permute_chained", "permute_chained.cu",
                pallas + "poseidon_pallas.py:368"),
         "K9": ("bn254_micro", "bn254_micro.cu", "tools/bn254_micro.py:45"),
+        # no Pallas counterpart: the JAX probe is an XLA-fused lax.scan
+        "K10": ("gl_mul_chain", "gl_mul_chain.cu", "tools/sol_bench.py:23"),
     }
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s from the start")
     kernels = []
@@ -1204,7 +1342,9 @@ def main():
             "launches": sum(by_drive.values()), "launches_by_drive": by_drive,
             "matched": True, **kstats[k]})
     print(json.dumps({"kernels": kernels, "card": device_line,
-                      "sol_probes": sol_rows, "bn254_probes": micro_rows,
+                      "sol_probes": sol_rows, "gl_mul_sol": mul_sol,
+                      "gl_mul_speed_of_light": speed_of_light,
+                      "census": census, "bn254_probes": micro_rows,
                       "serve": [{k: r[k] for k in ("id", "batch",
                                                    "compile_s", "verify_ms")}
                                 for r in serve_resp],

@@ -20,6 +20,7 @@ import torch
 from .hashing import get_hash_ops
 from .ops import goldilocks as gl
 from .ops import goldilocks_ext as gle
+from .utils.profiling import count, scope
 
 
 def _pow_root_consts(n_log):
@@ -92,7 +93,8 @@ def _merkle_planes_verdict(H, leaf_datas, idxs, sibs, depths, caps,
     `_bn254_merkle_planes_verdict` in the JAX package's fri.py)."""
     node, idx, sib, active = _stack_paths(leaf_datas, idxs, sibs, depths,
                                           max(depths), H.leaf_hash)
-    out = H.verify_paths(node, sib, idx, active)                    # (4, S*M)
+    with scope("two_to_one"):
+        out = H.verify_paths(node, sib, idx, active)                # (4, S*M)
     b, q = cap_index.shape
     got = out.reshape(4, len(caps), b, q).permute(2, 3, 1, 0)       # (B,Q,S,4)
     root = H.take_cap(H.stack(caps, 1), cap_index)                  # (B,Q,S,4)
@@ -129,6 +131,7 @@ def _bcast_ext(e, shape):
     return (e[0][:, None].expand(shape), e[1][:, None].expand(shape))
 
 
+@count
 def verify_fri(shape, batch, challenges, verdict):
     """FRI verification; returns the updated (B,) verdict.
 
@@ -155,9 +158,11 @@ def verify_fri(shape, batch, challenges, verdict):
     cap_index = x_index >> S.initial_depth                          # top bits
 
     # subgroup_x = 7 * phi^bitrev(x_index)
-    rev = bit_reverse_u32(x_index, n_log)
-    phi_pow = exp_from_bits_const_base(rev, _pow_root_consts(n_log), n_log)
-    subgroup_x = gl.mul(gl.full(bq, gl.GENERATOR, dev), phi_pow)
+    with scope("subgroup_x"):
+        rev = bit_reverse_u32(x_index, n_log)
+        phi_pow = exp_from_bits_const_base(rev, _pow_root_consts(n_log),
+                                           n_log)
+        subgroup_x = gl.mul(gl.full(bq, gl.GENERATOR, dev), phi_pow)
 
     # reduced openings
     alpha = challenges["fri_alpha"]
@@ -165,7 +170,46 @@ def verify_fri(shape, batch, challenges, verdict):
                         for vals in challenges["openings_batches"]]
 
     # combine_initial
-    alpha_bq = _bcast_ext(alpha, bq)
+    with scope("combine_initial"):
+        old_eval = _combine_initial(batch, challenges, reduced_openings,
+                                    subgroup_x, bq)
+
+    # merged Merkle checks
+    with scope("verify_merkle_proofs"):
+        mk_ok = merged_merkle_checks(S, H, batch, x_index, cap_index)
+        verdict = verdict & mk_ok.all(dim=2).all(dim=1)
+
+    # reduction steps
+    idx_cur = x_index
+    for si, ab in enumerate(S.reduction_arity_bits):
+        arity = 1 << ab
+        within = idx_cur & (arity - 1)                              # (B, Q)
+        ev = batch.step_evals[si]                                   # (B,Q,arity,2)
+        picked = ev.gather(2, within[:, :, None, None].expand(b, q, 1, 2))
+        new_eval = (picked[:, :, 0, 0], picked[:, :, 0, 1])
+        verdict = verdict & gle.eq(new_eval, old_eval).all(dim=1)
+        with scope("compute_evaluation"):
+            old_eval = _compute_evaluation(subgroup_x, within, ab, ev,
+                                           challenges["fri_betas"][si], bq)
+        subgroup_x = gl.exp_power_of_2(subgroup_x, ab)
+        idx_cur = idx_cur >> ab
+
+    # final polynomial: Horner over the coefficients, highest first
+    fp = batch.final_poly                                           # (B, L, 2)
+    sx_ext = gle.from_base(subgroup_x)
+    acc = gle.zeros_like(sx_ext)
+    with scope("final_poly_eval"):
+        for i in reversed(range(fp.shape[1])):
+            c = (fp[:, i, 0][:, None], fp[:, i, 1][:, None])        # over Q
+            acc = gle.add(gle.mul(acc, sx_ext), c)
+    return verdict & gle.eq(acc, old_eval).all(dim=1)
+
+
+def _combine_initial(batch, challenges, reduced_openings, subgroup_x, bq):
+    """The initial combined evaluation of every query (fri/mod.rs:170-220):
+    sum over the opening batches of (reduced evals - reduced openings) /
+    (subgroup_x - point), alpha-shifted batch by batch."""
+    alpha_bq = _bcast_ext(challenges["fri_alpha"], bq)
     sx_ext = gle.from_base(subgroup_x)
     denoms = [gle.sub(sx_ext, _bcast_ext(point, bq))
               for (point, _) in challenges["instance_batches"]]
@@ -183,34 +227,7 @@ def verify_fri(shape, batch, challenges, verdict):
         alpha_shift = gle.exp_const(alpha_bq, len(evals))
         total = gle.mul(alpha_shift, total)
         total = gle.add(gle.mul(numerator, denom_inv), total)
-    old_eval = total
-
-    # merged Merkle checks
-    mk_ok = merged_merkle_checks(S, H, batch, x_index, cap_index)
-    verdict = verdict & mk_ok.all(dim=2).all(dim=1)
-
-    # reduction steps
-    idx_cur = x_index
-    for si, ab in enumerate(S.reduction_arity_bits):
-        arity = 1 << ab
-        within = idx_cur & (arity - 1)                              # (B, Q)
-        ev = batch.step_evals[si]                                   # (B,Q,arity,2)
-        picked = ev.gather(2, within[:, :, None, None].expand(b, q, 1, 2))
-        new_eval = (picked[:, :, 0, 0], picked[:, :, 0, 1])
-        verdict = verdict & gle.eq(new_eval, old_eval).all(dim=1)
-        old_eval = _compute_evaluation(subgroup_x, within, ab, ev,
-                                       challenges["fri_betas"][si], bq)
-        subgroup_x = gl.exp_power_of_2(subgroup_x, ab)
-        idx_cur = idx_cur >> ab
-
-    # final polynomial: Horner over the coefficients, highest first
-    fp = batch.final_poly                                           # (B, L, 2)
-    sx_ext = gle.from_base(subgroup_x)
-    acc = gle.zeros_like(sx_ext)
-    for i in reversed(range(fp.shape[1])):
-        c = (fp[:, i, 0][:, None], fp[:, i, 1][:, None])            # over Q
-        acc = gle.add(gle.mul(acc, sx_ext), c)
-    return verdict & gle.eq(acc, old_eval).all(dim=1)
+    return total
 
 
 def _compute_evaluation(x, within, arity_bits, evals, beta, bq):

@@ -38,6 +38,23 @@ def pack_hi_lo(hi, lo):
     return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
 
 
+def split_hi_lo(u):
+    """uint64 array -> the JAX package's (hi, lo) uint32 pair (the inverse
+    of `pack_hi_lo`)."""
+    u = np.asarray(u, dtype=np.uint64)
+    return ((u >> np.uint64(32)).astype(np.uint32),
+            (u & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+def unpack_bn254_limbs(words):
+    """(..., 4) uint64 little-endian words -> the JAX package's (..., 16)
+    uint32 leaf of 16-bit limbs (the inverse of `pack_bn254_limbs`)."""
+    w = np.asarray(words, dtype=np.uint64)[..., None]
+    shifts = np.arange(4, dtype=np.uint64) * np.uint64(16)
+    limbs = (w >> shifts) & np.uint64(0xFFFF)
+    return (limbs.reshape(w.shape[:-2] + (16,)).astype(np.uint32),)
+
+
 def pack_bn254_limbs(limbs):
     """(..., 16) uint32 16-bit limbs of a BN254 element -> (..., 4) uint64
     little-endian words."""
@@ -57,6 +74,7 @@ class GLHashOps:
     # a hash array is a (hi, lo) pair of leaves of the JAX ProofBatch pytree
     jax_leaves = 2
     from_jax_leaves = staticmethod(pack_hi_lo)
+    to_jax_leaves = staticmethod(split_hi_lo)
 
     # Merkle leaves: (w, N) -> (4, N) hashes (K3 for w > 4); paths: node
     # (4, N), siblings (d_max, 4, N), idx (N,), active (d_max, N) -> roots
@@ -90,6 +108,7 @@ class BN254HashOps(GLHashOps):
     # a hash array is one (..., 16) leaf of 16-bit limbs
     jax_leaves = 1
     from_jax_leaves = staticmethod(pack_bn254_limbs)
+    to_jax_leaves = staticmethod(unpack_bn254_limbs)
 
     # the leaf hashes come out of K5 in Montgomery form and stay so through
     # the level loop of K4, which returns standard-form roots (the JAX

@@ -1,11 +1,15 @@
-"""plonky2 serde-JSON proof readers: proofs serialized by a Rust plonky2 /
-starky toolchain enter the port directly.
+"""plonky2 serde-JSON proof readers and writers: proofs serialized by a
+Rust plonky2 / starky toolchain enter the port directly, and the port's
+proofs leave in that form.
 
 Copies of the decoders of `halo2_plonky2_verifier_tpu/interop.py`
 (`_hash_dec` ... `_merkle_proof_dec` :59-106, `fri_proof_dec` :133,
 `stark_proof_from_plonky2_json` :187, `plonk_proof_from_plonky2_json`
-:240), returning the dataclasses of `proof_json.py`.  The struct layout is
-the serde derive of plonky2's own types:
+:240), returning the dataclasses of `proof_json.py`, and of its encoders
+(`_hash_enc` ... `_merkle_proof_enc` :59-102, `fri_proof_enc` :108,
+`stark_proof_to_plonky2_json` :161, `plonk_proof_to_plonky2_json` :221),
+which give the JAX package's strings.  The struct layout is the serde
+derive of plonky2's own types:
 
   GoldilocksField(u64)          -> a JSON number
   QuadraticExtension([F; 2])    -> [a0, a1]
@@ -24,7 +28,9 @@ the serde derive of plonky2's own types:
   plonk_zs_partial_products_cap, quotient_polys_cap, openings,
   opening_proof }, public_inputs }
 
-The writers stay in the JAX package.
+A serde `HashOut` holds 4 Goldilocks elements, so a proof with BN254 caps
+has no serde form: `_hash_enc` raises ValueError for a BN254 hash (one
+int), where the JAX one fails with a TypeError.
 """
 
 import json
@@ -35,6 +41,29 @@ from .proof_json import (PLONK_OPENING_FIELDS, FriInitialTreeProof, FriProof,
                          PlonkProofWithPublicInputs, StarkOpeningSet,
                          StarkProof, StarkProofWithPublicInputs,
                          proof_from_json)
+
+
+def _hash_enc(h):
+    if not isinstance(h, (list, tuple)):
+        raise ValueError("a BN254 hash has no plonky2 serde form: HashOut "
+                         "holds 4 Goldilocks elements")
+    return {"elements": [int(x) for x in h]}
+
+
+def _cap_enc(cap):
+    return [_hash_enc(h) for h in cap]
+
+
+def _ext_enc(e):
+    return [int(e[0]), int(e[1])]
+
+
+def _exts_enc(es):
+    return [_ext_enc(e) for e in es]
+
+
+def _merkle_proof_enc(mp):
+    return {"siblings": [_hash_enc(h) for h in mp.siblings]}
 
 
 def _hash_dec(d):
@@ -82,6 +111,26 @@ def fri_proof_dec(d: dict) -> FriProof:
     )
 
 
+def fri_proof_enc(fp: FriProof) -> dict:
+    return {
+        "commit_phase_merkle_caps": [_cap_enc(c)
+                                     for c in fp.commit_phase_merkle_caps],
+        "query_round_proofs": [
+            {
+                "initial_trees_proof": {"evals_proofs": [
+                    [[int(x) for x in evals], _merkle_proof_enc(mp)]
+                    for (evals, mp) in qr.initial_trees_proof.evals_proofs]},
+                "steps": [
+                    {"evals": _exts_enc(st.evals),
+                     "merkle_proof": _merkle_proof_enc(st.merkle_proof)}
+                    for st in qr.steps],
+            }
+            for qr in fp.query_round_proofs],
+        "final_poly": {"coeffs": _exts_enc(fp.final_poly)},
+        "pow_witness": int(fp.pow_witness),
+    }
+
+
 def _doc(s):
     return json.loads(s) if isinstance(s, (str, bytes)) else s
 
@@ -108,6 +157,51 @@ def stark_proof_from_plonky2_json(s) -> StarkProofWithPublicInputs:
                 quotient_polys=_exts_dec(o["quotient_polys"])),
             opening_proof=fri_proof_dec(p["opening_proof"])),
         public_inputs=[int(x) for x in doc["public_inputs"]])
+
+
+def stark_proof_to_plonky2_json(pwp: StarkProofWithPublicInputs) -> str:
+    """A starky proof as plonky2's serde JSON (Goldilocks caps only)."""
+    p = pwp.proof
+    o = p.openings
+
+    def optional(v, enc):
+        return None if v is None else enc(v)
+
+    return json.dumps({
+        "proof": {
+            "trace_cap": _cap_enc(p.trace_cap),
+            "permutation_zs_cap": optional(p.permutation_zs_cap, _cap_enc),
+            "quotient_polys_cap": _cap_enc(p.quotient_polys_cap),
+            "openings": {
+                "local_values": _exts_enc(o.local_values),
+                "next_values": _exts_enc(o.next_values),
+                "permutation_zs": optional(o.permutation_zs, _exts_enc),
+                "permutation_zs_next": optional(o.permutation_zs_next,
+                                                _exts_enc),
+                "quotient_polys": _exts_enc(o.quotient_polys),
+            },
+            "opening_proof": fri_proof_enc(p.opening_proof),
+        },
+        "public_inputs": [int(x) for x in pwp.public_inputs],
+    })
+
+
+def plonk_proof_to_plonky2_json(pwp: PlonkProofWithPublicInputs) -> str:
+    """A plonky2 PLONK proof as plonky2's serde JSON, every opening field
+    (the lookup ones included)."""
+    p = pwp.proof
+    return json.dumps({
+        "proof": {
+            "wires_cap": _cap_enc(p.wires_cap),
+            "plonk_zs_partial_products_cap": _cap_enc(
+                p.plonk_zs_partial_products_cap),
+            "quotient_polys_cap": _cap_enc(p.quotient_polys_cap),
+            "openings": {k: _exts_enc(getattr(p.openings, k))
+                         for k in PLONK_OPENING_FIELDS},
+            "opening_proof": fri_proof_enc(p.opening_proof),
+        },
+        "public_inputs": [int(x) for x in pwp.public_inputs],
+    })
 
 
 def plonk_proof_from_plonky2_json(s) -> PlonkProofWithPublicInputs:

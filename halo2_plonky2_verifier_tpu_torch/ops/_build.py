@@ -55,6 +55,8 @@ KERNELS = {
     "bn254_micro": ("bn254_micro.cu", "launch_bn254_micro",
                     (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                      ctypes.c_int, ctypes.c_int, _P, _P)),
+    "gl_mul_chain": ("gl_mul_chain.cu", "launch_gl_mul_chain",
+                     (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P)),
 }
 
 _loaded = {}        # kernel name -> ctypes function

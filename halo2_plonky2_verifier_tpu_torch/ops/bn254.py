@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from . import goldilocks as gl
 
 P = 21888242871839275222246405745257275088548364400416034343698204186575808495617
@@ -174,9 +175,15 @@ def _redc(t):
     return _cond_sub_p(s[..., N_LIMBS:])                      # < 2p -> < p
 
 
+def _mont_mul_limbs(a, b):
+    return _redc(_normalize(_cols(a, b)))
+
+
 def mont_mul_limbs(a, b):
     """a * b / R mod p on (..., 16) limbs (leading axes broadcast)."""
-    return _redc(_normalize(_cols(a, b)))
+    if profiling._ACTIVE is not None:
+        profiling.record("bn254_mont_mul", profiling.lanes(a, b) // N_LIMBS)
+    return _mont_mul_limbs(a, b)
 
 
 def mont_matvec_limbs(consts, x):
@@ -199,7 +206,9 @@ def add_mod_limbs(a, b):
 
 def mont_mul(a, b):
     """a * b * R^-1 mod p (canonical), for a * b < R * p."""
-    return from_limbs(mont_mul_limbs(to_limbs(a), to_limbs(b)))
+    if profiling._ACTIVE is not None:
+        profiling.record("bn254_mont_mul", profiling.lanes(a, b) // 4)
+    return from_limbs(_mont_mul_limbs(to_limbs(a), to_limbs(b)))
 
 
 def to_mont_limbs(x):

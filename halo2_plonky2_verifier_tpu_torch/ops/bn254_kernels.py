@@ -23,6 +23,7 @@ plane is (16, N), row 4 * e + k = word k of element e.
 
 import torch
 
+from ..utils import profiling
 from . import _build
 from . import bn254 as fr
 from . import poseidon_bn254 as pb
@@ -47,12 +48,14 @@ def _stream(t):
 # K6: the standalone permutation
 # ----------------------------------------------------------------------------
 
+@profiling.counted(profiling.bn254_planes)
 def permute_planes_plain(state):
     """Plain K6: (16, N) canonical Montgomery state planes -> the permuted
     planes, canonical."""
     return _planes(pb.permute_mont(_words(state, 4)))
 
 
+@profiling.counted(profiling.bn254_planes)
 def permute_planes(state):
     """K6 wrapper: see `permute_planes_plain` for the contract."""
     n = state.shape[-1]
@@ -74,6 +77,14 @@ permute_planes.launches = 0
 # K5: leaf hash_or_noop
 # ----------------------------------------------------------------------------
 
+def _leaf_census(inputs):
+    """No permutation for w <= 3 (packed), else ceil(w / 9) a leaf."""
+    if inputs.dim() == 2 and inputs.shape[0] > 3:
+        w, n = inputs.shape
+        profiling.record_bn254_permutations(-(-w // 9) * n)
+
+
+@profiling.counted(_leaf_census)
 def hash_or_noop_mont_planes_plain(inputs):
     """Plain K5: (w, N) int64 Goldilocks words -> (4, N) canonical
     Montgomery Fr planes.  w <= 3 packs the elements into one Fr (no
@@ -87,6 +98,7 @@ def hash_or_noop_mont_planes_plain(inputs):
     return h.T.contiguous()
 
 
+@profiling.counted(_leaf_census)
 def hash_or_noop_mont_planes(inputs):
     """K5 wrapper: see `hash_or_noop_mont_planes_plain` for the contract."""
     if inputs.dim() != 2 or inputs.shape[0] < 1:
@@ -111,6 +123,13 @@ hash_or_noop_mont_planes.launches = 0
 # K4: Merkle paths
 # ----------------------------------------------------------------------------
 
+def _paths_census(node, siblings, *_):
+    """d_max x N two_to_one permutations, active or not, as the JAX census
+    counts the padded level scan (`fri.py:merged_merkle_verdict` there)."""
+    profiling.record_bn254_permutations(siblings.shape[0] * node.shape[-1])
+
+
+@profiling.counted(_paths_census)
 def verify_paths_mont_planes_plain(node, siblings, idx, active):
     """Plain K4.  node (4, N) canonical Montgomery leaf hashes (K5's
     output); siblings (d_max, 4, N) standard form, any 256-bit value; idx
@@ -134,6 +153,7 @@ def verify_paths_mont_planes_plain(node, siblings, idx, active):
     return fr.from_mont(h).T.contiguous()
 
 
+@profiling.counted(_paths_census)
 def verify_paths_mont_planes(node, siblings, idx, active):
     """K4 wrapper: see `verify_paths_mont_planes_plain` for the contract."""
     n = node.shape[-1]

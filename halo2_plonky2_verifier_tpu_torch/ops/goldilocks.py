@@ -20,6 +20,8 @@ bit also on non-canonical inputs (values in [p, 2^64)).
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 P = (1 << 64) - (1 << 32) + 1
 EPSILON = (1 << 32) - 1          # 2^64 mod p
 GENERATOR = 7                    # multiplicative generator and coset shift
@@ -147,6 +149,8 @@ def reduce128(hi, lo):
 # ----------------------------------------------------------------------------
 
 def add(a, b):
+    if profiling._ACTIVE is not None:
+        profiling.record("gl_add", profiling.lanes(a, b))
     s = a + b
     # a carry means + 2^64 = + EPSILON (mod p)
     s = torch.where(_ult(s, a), s + EPSILON, s)
@@ -164,10 +168,14 @@ def neg(a):
 
 
 def mul(a, b):
+    if profiling._ACTIVE is not None:
+        profiling.record("gl_mul", profiling.lanes(a, b))
     return reduce128(*_mul128(a, b))
 
 
 def square(a):
+    if profiling._ACTIVE is not None:
+        profiling.record("gl_mul", profiling.lanes(a))
     return reduce128(*_mul128(a, a))
 
 

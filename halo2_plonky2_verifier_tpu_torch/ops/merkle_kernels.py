@@ -23,6 +23,7 @@ Layout: lanes last, (rows, N) int64, as in the JAX package's plane form.
 
 import torch
 
+from ..utils import profiling
 from . import _build
 from .poseidon import W, permute_planes_plain, two_to_one_planes_plain
 
@@ -49,6 +50,14 @@ def _device(*tensors):
 # K1: Merkle paths
 # ----------------------------------------------------------------------------
 
+def _paths_census(node, siblings, *_):
+    """Every level of every path, active or not: d_max x N two_to_one
+    permutations, as the JAX census counts the padded level scan
+    (`fri.py:merkle_scan_planes` there)."""
+    profiling.record_gl_permutations(siblings.shape[0] * node.shape[-1])
+
+
+@profiling.counted(_paths_census)
 def verify_paths_planes_plain(node, siblings, idx, active):
     """Plain K1.  node (4, N), siblings (d_max, 4, N) int64; idx (N,) int64
     leaf indices; active (d_max, N) int32 (1 while the level is inside the
@@ -67,6 +76,7 @@ def verify_paths_planes_plain(node, siblings, idx, active):
     return node
 
 
+@profiling.counted(_paths_census)
 def verify_paths_planes(node, siblings, idx, active):
     """K1 wrapper: see `verify_paths_planes_plain` for the contract."""
     n = node.shape[-1]
@@ -94,6 +104,14 @@ verify_paths_planes.launches = 0
 # K3: leaf sponge
 # ----------------------------------------------------------------------------
 
+def _sponge_census(inputs):
+    """ceil(w / 8) permutations a leaf of (w, N)."""
+    if inputs.dim() == 2:
+        w, n = inputs.shape
+        profiling.record_gl_permutations(-(-w // 8) * n)
+
+
+@profiling.counted(_sponge_census)
 def hash_no_pad_planes_plain(inputs):
     """Plain K3: (w, N) int64 -> (4, N), plonky2 hash_n_to_m_no_pad with
     overwrite-mode rate-8 absorb."""
@@ -106,6 +124,7 @@ def hash_no_pad_planes_plain(inputs):
     return state[:4]
 
 
+@profiling.counted(_sponge_census)
 def hash_no_pad_planes(inputs):
     """K3 wrapper: see `hash_no_pad_planes_plain` for the contract."""
     if inputs.dim() != 2:

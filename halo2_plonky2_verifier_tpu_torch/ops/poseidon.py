@@ -41,6 +41,7 @@ from ..constants.poseidon_goldilocks import (
     SPONGE_WIDTH,
 )
 from ..constants.poseidon_goldilocks_opt import opt_tables
+from ..utils import profiling
 from . import goldilocks as gl
 
 W = SPONGE_WIDTH
@@ -80,6 +81,7 @@ def _mds_planes(state):
     return gl.reduce128(mid >> 32, lo64)
 
 
+@profiling.counted(profiling.gl_planes)
 def permute_planes_plain(state):
     """(12, N) int64 -> the permuted (12, N) state, canonical."""
     rc = _round_constants(state.device)
@@ -120,6 +122,7 @@ def _field_sum(x):
     return acc
 
 
+@profiling.counted(profiling.gl_planes)
 def permute_planes_opt_plain(state):
     """`permute_planes_plain` through plonky2's fast partial layer: entry
     constants and the 11 x 11 entry matrix, then per partial round the

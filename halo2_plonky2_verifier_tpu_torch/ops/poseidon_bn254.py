@@ -28,6 +28,7 @@ import torch
 from ..constants import poseidon_bn254_opt as pbo
 from ..constants.poseidon_bn254 import (FULL_ROUNDS, PARTIAL_ROUNDS, RATE,
                                         WIDTH, generate)
+from ..utils import profiling
 from . import bn254 as fr
 
 ROUNDS = FULL_ROUNDS + PARTIAL_ROUNDS
@@ -82,6 +83,12 @@ def round_mont_limbs(state, r):
     return mix_mont_limbs(state)
 
 
+def _limbs_census(state):
+    """One permutation a (4, 16)-limb state of (..., 4, 16)."""
+    profiling.record_bn254_permutations(state.numel() // (WIDTH * 16))
+
+
+@profiling.counted(_limbs_census)
 def permute_mont_limbs(state):
     """(..., 4, 16) canonical Montgomery limbs -> the permuted state."""
     for r in range(ROUNDS):
@@ -129,6 +136,7 @@ def partial_round_opt_limbs(state, i):
     return torch.cat([new0, rest], dim=-2)
 
 
+@profiling.counted(_limbs_census)
 def permute_mont_limbs_opt(state):
     """(..., 4, 16) canonical Montgomery limbs -> the permuted state, by the
     optimized schedule: HALF full rounds, PARTIAL_ROUNDS partial rounds,
@@ -142,6 +150,12 @@ def permute_mont_limbs_opt(state):
     return state
 
 
+def _words_census(state):
+    """One permutation a (4, 4)-word state of (..., 4, 4)."""
+    profiling.record_bn254_permutations(state.numel() // (WIDTH * 4))
+
+
+@profiling.counted(_words_census)
 def permute_mont(state):
     """(..., 4, 4) canonical Montgomery words -> the permuted state."""
     return fr.from_limbs(permute_mont_limbs(fr.to_limbs(state)))

@@ -27,6 +27,7 @@ import operator
 
 import torch
 
+from ..utils import profiling
 from . import _build
 from .merkle_kernels import _check, _device
 from .poseidon import W, permute_planes_plain
@@ -47,6 +48,7 @@ def _chain(chain):
 # K7: one permutation
 # ----------------------------------------------------------------------------
 
+@profiling.counted(profiling.gl_planes)
 def permute_planes(state):
     """K7 wrapper: (12, N) int64 -> the permuted (12, N) state; see
     `ops/poseidon.py:permute_planes_plain` for the plain version."""
@@ -69,6 +71,11 @@ permute_planes.launches = 0
 # K8: `chain` permutations
 # ----------------------------------------------------------------------------
 
+def _chained_census(state, chain):
+    profiling.record_gl_permutations(chain * state.shape[-1])
+
+
+@profiling.counted(_chained_census)
 def permute_planes_chained_plain(state, chain):
     """Plain K8: (12, N) int64 -> the state after `chain` permutations; chain
     0 returns a copy of the input, as `fori_loop(0, 0)` returns its
@@ -79,6 +86,7 @@ def permute_planes_chained_plain(state, chain):
     return state
 
 
+@profiling.counted(_chained_census)
 def permute_planes_chained(state, chain):
     """K8 wrapper: see `permute_planes_chained_plain` for the contract."""
     chain = _chain(chain)

@@ -15,11 +15,19 @@ memory traffic is the chunks in and the squeeze outputs out.
 
 import torch
 
+from ..utils import profiling
 from . import _build
 from .merkle_kernels import _check, _device
 from .poseidon import SPONGE_RATE, W, permute_planes_plain
 
 
+def _steps_census(chunks, *_):
+    """One permutation a step a proof."""
+    if chunks.dim() == 3:
+        profiling.record_gl_permutations(chunks.shape[0] * chunks.shape[-1])
+
+
+@profiling.counted(_steps_census)
 def run_steps_planes_plain(chunks, mask):
     """Plain K2.  chunks (n_steps, 8, B) int64 gathered observation chunks;
     mask (n_steps, 8) int32, 1 where the step overwrites the rate lane.
@@ -36,6 +44,7 @@ def run_steps_planes_plain(chunks, mask):
     return torch.stack(ys)
 
 
+@profiling.counted(_steps_census)
 def run_steps_planes(chunks, mask):
     """K2 wrapper: see `run_steps_planes_plain` for the contract."""
     if chunks.dim() != 3:

@@ -34,6 +34,7 @@ from .ops import poseidon
 from .circuit.vanishing import eval_vanishing_terms
 from .stark import ExtOps, _ext_rows
 from .transcript import TranscriptSchedule, extract, extract_ext, run_schedule
+from .utils.profiling import scope
 from .witness import check_field_shapes, fri_u64_fields, u64
 
 
@@ -276,7 +277,8 @@ def plonk_challenge_stream(batch, verifier_data):
     S = batch.shape
     B = batch.batch_size
     # plonky2 get_public_inputs_hash is hash_no_pad (not hash_or_noop)
-    pi_hash = poseidon.hash_no_pad(batch.public_inputs)
+    with scope("public_inputs_hash"):
+        pi_hash = poseidon.hash_no_pad(batch.public_inputs)
     sched = TranscriptSchedule()
     parts = []
 
@@ -329,7 +331,8 @@ def plonk_challenges(batch, verifier_data):
     of ext), fri_pow_response (B,), queries (B, Q)}."""
     pi_hash, sched, elements, refs = plonk_challenge_stream(batch,
                                                             verifier_data)
-    ys = run_schedule(sched, elements)
+    with scope("get_plonk_challenges"):
+        ys = run_schedule(sched, elements)
     dev = batch.device
     q_steps = torch.tensor([r.step for r in refs["queries"]], device=dev)
     q_lanes = torch.tensor([r.lane for r in refs["queries"]], device=dev)
@@ -355,48 +358,21 @@ def build_plonk_verifier(common, verifier_data):
             raise ValueError(f"batch shape {S} does not match {shape}")
         B = batch.batch_size
         dev = batch.device
-        verdict = canonicality_verdict(batch)
+        with scope("load_witness"):
+            verdict = canonicality_verdict(batch)
 
         # 1. the public-input hash and every challenge (K7, K2)
         ch = plonk_challenges(batch, verifier_data)
         zeta = ch["zeta"]
-
-        # 2. vanishing / quotient consistency at zeta
-        F = ExtOps((B,), dev)
-        one = F.one()
-        n = 1 << S.degree_bits
-        zeta_pow_n = gle.exp_power_of_2(zeta, S.degree_bits)
-        z_h_zeta = gle.sub(zeta_pow_n, one)
-        l0_den = gle.scalar_mul(gle.sub(zeta, one), gl.full((B,), n, dev))
-        l0 = gle.mul(z_h_zeta, gle.inv(l0_den))
-        pi_hash = ch["pi_hash"]
-        pi_hash_ext = [gle.from_base(pi_hash[:, i]) for i in range(4)]
         lookup_zs = ([] if batch.lookup_zs is None
                      else _ext_rows(batch.lookup_zs))
         lookup_zs_next = ([] if batch.lookup_zs_next is None
                           else _ext_rows(batch.lookup_zs_next))
-        terms = eval_vanishing_terms(
-            F, common, zeta,
-            _ext_rows(batch.constants), _ext_rows(batch.plonk_sigmas),
-            _ext_rows(batch.wires),
-            _ext_rows(batch.plonk_zs), _ext_rows(batch.plonk_zs_next),
-            _ext_rows(batch.partial_products),
-            pi_hash_ext, ch["betas"], ch["gammas"], l0,
-            lookup_zs=lookup_zs, lookup_zs_next=lookup_zs_next,
-            deltas=ch["deltas"])
-        # sum_i alpha^i * term_i for every alpha at once (the alphas are
-        # base-field values stacked on a leading axis)
-        alphas = torch.stack(ch["alphas"])                      # (nc, B)
-        acc = (torch.zeros_like(alphas), torch.zeros_like(alphas))
-        for t in reversed(terms):
-            acc = gle.add(gle.scalar_mul(acc, alphas), (t[0][None], t[1][None]))
-        quot_rows = _ext_rows(batch.quotient_polys)
-        q = S.quotient_degree_factor
-        for i in range(S.num_challenges):
-            recombined = gle.reduce_with_powers(quot_rows[i * q:(i + 1) * q],
-                                                zeta_pow_n)
-            verdict = verdict & gle.eq(gle.mul(z_h_zeta, recombined),
-                                       (acc[0][i], acc[1][i]))
+
+        # 2. vanishing / quotient consistency at zeta
+        with scope("vanishing_poly_check"):
+            verdict = _vanishing_check(common, batch, ch, verdict,
+                                       lookup_zs, lookup_zs_next)
 
         # 3. FRI over the 4-oracle instance (K3 leaves, K1 paths)
         zeta_polys, zeta_next_polys = fri_instance_polys(S)
@@ -417,3 +393,44 @@ def build_plonk_verifier(common, verifier_data):
         return verify_fri(S, batch, challenges, verdict)
 
     return verify
+
+
+def _vanishing_check(common, batch, ch, verdict, lookup_zs, lookup_zs_next):
+    """Z_H(zeta) * quotient(zeta) == the alpha-folded vanishing terms, per
+    challenge, ANDed into `verdict`."""
+    S = batch.shape
+    B = batch.batch_size
+    dev = batch.device
+    zeta = ch["zeta"]
+    F = ExtOps((B,), dev)
+    one = F.one()
+    n = 1 << S.degree_bits
+    zeta_pow_n = gle.exp_power_of_2(zeta, S.degree_bits)
+    z_h_zeta = gle.sub(zeta_pow_n, one)
+    l0_den = gle.scalar_mul(gle.sub(zeta, one), gl.full((B,), n, dev))
+    l0 = gle.mul(z_h_zeta, gle.inv(l0_den))
+    pi_hash = ch["pi_hash"]
+    pi_hash_ext = [gle.from_base(pi_hash[:, i]) for i in range(4)]
+    terms = eval_vanishing_terms(
+        F, common, zeta,
+        _ext_rows(batch.constants), _ext_rows(batch.plonk_sigmas),
+        _ext_rows(batch.wires),
+        _ext_rows(batch.plonk_zs), _ext_rows(batch.plonk_zs_next),
+        _ext_rows(batch.partial_products),
+        pi_hash_ext, ch["betas"], ch["gammas"], l0,
+        lookup_zs=lookup_zs, lookup_zs_next=lookup_zs_next,
+        deltas=ch["deltas"])
+    # sum_i alpha^i * term_i for every alpha at once (the alphas are
+    # base-field values stacked on a leading axis)
+    alphas = torch.stack(ch["alphas"])                          # (nc, B)
+    acc = (torch.zeros_like(alphas), torch.zeros_like(alphas))
+    for t in reversed(terms):
+        acc = gle.add(gle.scalar_mul(acc, alphas), (t[0][None], t[1][None]))
+    quot_rows = _ext_rows(batch.quotient_polys)
+    q = S.quotient_degree_factor
+    for i in range(S.num_challenges):
+        recombined = gle.reduce_with_powers(quot_rows[i * q:(i + 1) * q],
+                                            zeta_pow_n)
+        verdict = verdict & gle.eq(gle.mul(z_h_zeta, recombined),
+                                   (acc[0][i], acc[1][i]))
+    return verdict

@@ -1,12 +1,17 @@
-"""Proof containers and the readers of the repo's own proof JSON.
+"""Proof containers, and the readers and writers of the repo's own proof
+JSON.
 
 Copies of the dataclasses of `halo2_plonky2_verifier_tpu/refimpl/proof.py:
 18-87` (starky proofs, the FRI opening proof) and
 `halo2_plonky2_verifier_tpu/refimpl/plonk/proof.py:11-56` (plonky2 PLONK
-proofs), and of their readers: `fri_proof_from_json_dict` (refimpl
+proofs), of their readers: `fri_proof_from_json_dict` (refimpl
 proof.py:122), `proof_from_json` (:190) and `plonk_proof_from_json` (plonk
-proof.py:78).  These are the formats of the `tests/fixtures/*.json` and
-`*.jsonl` files.  The writers stay in the JAX package.
+proof.py:78), and of their writers: `ext_to_json` (proof.py:94
+`_ext_to_json`), `proof_to_json_dict_fri` (:98), `proof_to_json` (:148) and
+`plonk_proof_to_json` (plonk proof.py:58).  These are the formats of the
+`tests/fixtures/*.json` and `*.jsonl` files.  A writer gives the string the
+JAX package's writer gives for the same proof, key order, numbers and
+decimal strings (a PLONK proof's caps and public inputs) and nulls alike.
 
 Every field element is read as a Python int, whether the file holds it as a
 JSON number or as a decimal string (the PLONK files write caps and public
@@ -212,6 +217,79 @@ def plonk_proof_from_json(s) -> PlonkProofWithPublicInputs:
                 for k in PLONK_OPENING_FIELDS}),
             opening_proof=fri_proof_from_json_dict(doc["opening_proof"])),
         public_inputs=[int(x) for x in doc["public_inputs"]])
+
+
+# ----------------------------------------------------------------------------
+# writers
+# ----------------------------------------------------------------------------
+
+def ext_to_json(e):
+    return [int(e[0]), int(e[1])]
+
+
+def _exts_to_json(v):
+    return None if v is None else [ext_to_json(e) for e in v]
+
+
+def proof_to_json_dict_fri(op: FriProof) -> dict:
+    """The FRI opening proof as the dict the repo's JSON nests."""
+    return {
+        "commit_phase_merkle_caps": op.commit_phase_merkle_caps,
+        "final_poly": _exts_to_json(op.final_poly),
+        "pow_witness": op.pow_witness,
+        "query_round_proofs": [
+            {
+                "initial_trees_proof": [
+                    {"evals": evals, "siblings": mp.siblings}
+                    for (evals, mp) in qr.initial_trees_proof.evals_proofs],
+                "steps": [
+                    {"evals": _exts_to_json(st.evals),
+                     "siblings": st.merkle_proof.siblings}
+                    for st in qr.steps],
+            }
+            for qr in op.query_round_proofs],
+    }
+
+
+def proof_to_json(pwp: StarkProofWithPublicInputs) -> str:
+    """A starky proof as the repo's JSON (the inverse of
+    `proof_from_json`)."""
+    p = pwp.proof
+    o = p.openings
+    return json.dumps({
+        "trace_cap": p.trace_cap,
+        "permutation_zs_cap": p.permutation_zs_cap,
+        "quotient_polys_cap": p.quotient_polys_cap,
+        "openings": {
+            "local_values": _exts_to_json(o.local_values),
+            "next_values": _exts_to_json(o.next_values),
+            "permutation_zs": _exts_to_json(o.permutation_zs),
+            "permutation_zs_next": _exts_to_json(o.permutation_zs_next),
+            "quotient_polys": _exts_to_json(o.quotient_polys),
+        },
+        "opening_proof": proof_to_json_dict_fri(p.opening_proof),
+        "public_inputs": pwp.public_inputs,
+    })
+
+
+def plonk_proof_to_json(pwp: PlonkProofWithPublicInputs) -> str:
+    """A plonky2 PLONK proof as the repo's JSON: caps and public inputs as
+    decimal strings, every opening field, the lookup ones included (the
+    inverse of `plonk_proof_from_json`)."""
+    p = pwp.proof
+
+    def cap(v):
+        return [[str(x) for x in h] for h in v]
+
+    return json.dumps({
+        "wires_cap": cap(p.wires_cap),
+        "zs_pp_cap": cap(p.plonk_zs_partial_products_cap),
+        "quotient_cap": cap(p.quotient_polys_cap),
+        "openings": {k: _exts_to_json(getattr(p.openings, k))
+                     for k in PLONK_OPENING_FIELDS},
+        "opening_proof": proof_to_json_dict_fri(p.opening_proof),
+        "public_inputs": [str(x) for x in pwp.public_inputs],
+    })
 
 
 def read_jsonl(path, reader):

@@ -34,6 +34,7 @@ from .ops import goldilocks_ext as gle
 from .transcript import (BN254TranscriptSchedule, TranscriptSchedule, extract,
                          extract_ext, run_schedule, run_schedule_bn254)
 from .utils.logging import get_logger
+from .utils.profiling import scope
 from .witness import (QUERY_FIELDS, ProofBatch, canonicality_verdict,
                       proof_shape)
 
@@ -286,6 +287,85 @@ def and_over_group(verdict, group):
     return v.to(verdict.device) == 1
 
 
+def _stark_challenges(batch, transcript, run, query_shard, q_local):
+    """Every challenge of a batch through one transcript run: zeta,
+    alphas, fri_alpha, fri_betas, pow_response, query_lo (B, Q; this
+    shard's slice under a query shard) and perm_challenges."""
+    S = batch.shape
+    dev = batch.device
+    sched, elements, refs = challenge_stream(batch, transcript)
+    ys = run(sched, elements)
+    q_steps = torch.tensor([r.step for r in refs["queries"]], device=dev)
+    q_lanes = torch.tensor([r.lane for r in refs["queries"]], device=dev)
+    query_lo = ys[q_steps, q_lanes].T & 0xFFFFFFFF              # (B, Q)
+    if query_shard is not None:
+        start = query_shard.index * q_local
+        query_lo = query_lo[:, start:start + q_local]
+    perm_challenges = None
+    if S.uses_permutation:
+        perm_challenges = [
+            [(extract(ys, b), extract(ys, g)) for (b, g) in cset]
+            for cset in refs["perm"]
+        ]
+    return {"zeta": extract_ext(ys, refs["zeta"]),
+            "alphas": [extract(ys, r) for r in refs["alphas"]],
+            "fri_alpha": extract_ext(ys, refs["fri_alpha"]),
+            "fri_betas": [extract_ext(ys, r) for r in refs["betas"]],
+            "pow_response": extract(ys, refs["pow"]),
+            "query_lo": query_lo,
+            "perm_challenges": perm_challenges}
+
+
+def _vanishing_check(stark, batch, ch, verdict, check_vanishing):
+    """The quotient's consistency with the constraints at zeta:
+    Z_H(zeta) * quotient(zeta) == the alpha-folded constraints, per
+    challenge, ANDed into `verdict` unless `check_vanishing` is False (the
+    terms are computed either way)."""
+    S = batch.shape
+    B = batch.batch_size
+    dev = batch.device
+    zeta = ch["zeta"]
+    g_sub = gl.primitive_root_of_unity(S.degree_bits)
+    n = 1 << S.degree_bits
+    F = ExtOps((B,), dev)
+    one = F.one()
+    zeta_pow_n = gle.exp_power_of_2(zeta, S.degree_bits)
+    z_h_zeta = gle.sub(zeta_pow_n, one)
+    l0_den = gle.scalar_mul(gle.sub(zeta, one), gl.full((B,), n, dev))
+    llast_den = gle.scalar_mul(
+        gle.sub(gle.scalar_mul(zeta, gl.full((B,), g_sub, dev)), one),
+        gl.full((B,), n, dev))
+    l0_den_inv, llast_den_inv = gle.inv_pair(l0_den, llast_den)
+    l0 = gle.mul(z_h_zeta, l0_den_inv)
+    llast = gle.mul(z_h_zeta, llast_den_inv)
+    z_last = gle.sub(zeta, F.from_base(pow(g_sub, n - 1, gl.P)))
+
+    alphas_ext = [gle.from_base(a) for a in ch["alphas"]]
+    consumer = CollectingConsumer(F, z_last, l0, llast)
+    local = _ext_rows(batch.local_values)
+    nxt = _ext_rows(batch.next_values)
+    pis = [gle.from_base(batch.public_inputs[:, i])
+           for i in range(S.num_public_inputs)]
+    stark.eval(F, local, nxt, pis, consumer)
+    if S.uses_permutation:
+        batches = get_permutation_batches(
+            stark.permutation_pairs(), ch["perm_challenges"],
+            S.num_challenges, stark.permutation_batch_size())
+        eval_permutation_checks(
+            F, local, _ext_rows(batch.permutation_zs),
+            _ext_rows(batch.permutation_zs_next), batches, consumer)
+
+    accumulators = consumer.fold(alphas_ext)
+    quot_rows = _ext_rows(batch.quotient_polys)
+    factor = len(quot_rows) // S.num_challenges
+    for i, acc in enumerate(accumulators):
+        chunk = quot_rows[i * factor:(i + 1) * factor]
+        recombined = gle.reduce_with_powers(chunk, zeta_pow_n)
+        if check_vanishing:
+            verdict = verdict & gle.eq(gle.mul(z_h_zeta, recombined), acc)
+    return verdict
+
+
 def build_verifier(stark, config, degree_bits, check_vanishing=True,
                    hasher="poseidon_goldilocks", query_shard=None,
                    transcript="poseidon_goldilocks"):
@@ -333,72 +413,22 @@ def build_verifier(stark, config, degree_bits, check_vanishing=True,
                         raise ValueError(
                             f"{f}: {t.shape[1]} queries, expected this "
                             f"shard's {q_local}")
-        verdict = canonicality_verdict(batch)
+        with scope("load_witness"):
+            verdict = canonicality_verdict(batch)
 
         # 1. transcript: one sponge run over the observed element stream
-        sched, elements, refs = challenge_stream(batch, transcript)
-        ys = run(sched, elements)
+        with scope("get_stark_challenges"):
+            ch = _stark_challenges(batch, transcript, run, query_shard,
+                                   q_local)
 
-        # 2. challenge values
-        zeta = extract_ext(ys, refs["zeta"])
-        alphas = [extract(ys, r) for r in refs["alphas"]]
-        fri_alpha = extract_ext(ys, refs["fri_alpha"])
-        fri_betas = [extract_ext(ys, r) for r in refs["betas"]]
-        pow_response = extract(ys, refs["pow"])
-        q_steps = torch.tensor([r.step for r in refs["queries"]], device=dev)
-        q_lanes = torch.tensor([r.lane for r in refs["queries"]], device=dev)
-        query_lo = ys[q_steps, q_lanes].T & 0xFFFFFFFF          # (B, Q)
-        if query_shard is not None:
-            start = query_shard.index * q_local
-            query_lo = query_lo[:, start:start + q_local]
-        perm_challenges = None
-        if S.uses_permutation:
-            perm_challenges = [
-                [(extract(ys, b), extract(ys, g)) for (b, g) in cset]
-                for cset in refs["perm"]
-            ]
+        # 2. vanishing polynomial / quotient consistency at zeta
+        with scope("vanishing_poly_check"):
+            verdict = _vanishing_check(stark, batch, ch, verdict,
+                                       check_vanishing)
 
-        # 3. vanishing polynomial / quotient consistency at zeta
+        # 3. FRI
+        zeta = ch["zeta"]
         g_sub = gl.primitive_root_of_unity(S.degree_bits)
-        n = 1 << S.degree_bits
-        F = ExtOps((B,), dev)
-        one = F.one()
-        zeta_pow_n = gle.exp_power_of_2(zeta, S.degree_bits)
-        z_h_zeta = gle.sub(zeta_pow_n, one)
-        l0_den = gle.scalar_mul(gle.sub(zeta, one), gl.full((B,), n, dev))
-        llast_den = gle.scalar_mul(
-            gle.sub(gle.scalar_mul(zeta, gl.full((B,), g_sub, dev)), one),
-            gl.full((B,), n, dev))
-        l0_den_inv, llast_den_inv = gle.inv_pair(l0_den, llast_den)
-        l0 = gle.mul(z_h_zeta, l0_den_inv)
-        llast = gle.mul(z_h_zeta, llast_den_inv)
-        z_last = gle.sub(zeta, F.from_base(pow(g_sub, n - 1, gl.P)))
-
-        alphas_ext = [gle.from_base(a) for a in alphas]
-        consumer = CollectingConsumer(F, z_last, l0, llast)
-        local = _ext_rows(batch.local_values)
-        nxt = _ext_rows(batch.next_values)
-        pis = [gle.from_base(batch.public_inputs[:, i])
-               for i in range(S.num_public_inputs)]
-        stark.eval(F, local, nxt, pis, consumer)
-        if S.uses_permutation:
-            batches = get_permutation_batches(
-                stark.permutation_pairs(), perm_challenges,
-                S.num_challenges, stark.permutation_batch_size())
-            eval_permutation_checks(
-                F, local, _ext_rows(batch.permutation_zs),
-                _ext_rows(batch.permutation_zs_next), batches, consumer)
-
-        accumulators = consumer.fold(alphas_ext)
-        quot_rows = _ext_rows(batch.quotient_polys)
-        factor = len(quot_rows) // S.num_challenges
-        for i, acc in enumerate(accumulators):
-            chunk = quot_rows[i * factor:(i + 1) * factor]
-            recombined = gle.reduce_with_powers(chunk, zeta_pow_n)
-            if check_vanishing:
-                verdict = verdict & gle.eq(gle.mul(z_h_zeta, recombined), acc)
-
-        # 4. FRI
         zeta_next = gle.scalar_mul(zeta, gl.full((B,), g_sub, dev))
         zeta_polys, zeta_next_polys = fri_instance_polys(S)
         openings_zeta = (_ext_rows(batch.local_values)
@@ -409,10 +439,10 @@ def build_verifier(stark, config, degree_bits, check_vanishing=True,
                               + (_ext_rows(batch.permutation_zs_next)
                                  if S.uses_permutation else []))
         challenges = {
-            "fri_alpha": fri_alpha,
-            "fri_betas": fri_betas,
-            "fri_pow_response": pow_response,
-            "query_lo": query_lo,
+            "fri_alpha": ch["fri_alpha"],
+            "fri_betas": ch["fri_betas"],
+            "fri_pow_response": ch["pow_response"],
+            "query_lo": ch["query_lo"],
             "instance_batches": [(zeta, zeta_polys),
                                  (zeta_next, zeta_next_polys)],
             "openings_batches": [openings_zeta, openings_zeta_next],

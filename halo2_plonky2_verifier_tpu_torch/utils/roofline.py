@@ -27,6 +27,8 @@ computes:
   rounds of one S-box and a sparse mix (row 0: 4 products, one REDC;
   rows 1-3: one product and one REDC each).
 
+K10's work (`gl_mul_chain`) is `chain` Goldilocks products an element.
+
 Used by `chip_smoke.py`, `tools/torch_sol_bench.py` and
 `tools/torch_bn254_micro.py`.
 """
@@ -49,6 +51,12 @@ BN_MIX = 4 * (4 * BN_MUL + BN_REDC)           # the dense mix, one REDC a row
 BN_FULL_ROUND = 4 * BN_SBOX + BN_MIX
 BN_PARTIAL_ROUND = BN_SBOX + 7 * BN_MUL + 4 * BN_REDC
 BN_PERM_MULS = 8 * BN_FULL_ROUND + 56 * BN_PARTIAL_ROUND             # 82,688
+
+
+def gl_mul_chain(lanes, chain):
+    """(bytes, operations) of K10: `chain` products on each of `lanes`
+    elements, x and y read once and the result written once."""
+    return 3 * 8 * lanes, lanes * chain * GL_MUL
 
 
 def bound(nbytes, ops, ops_per_s=IMAD_PER_S):

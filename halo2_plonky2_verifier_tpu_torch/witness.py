@@ -8,7 +8,8 @@ a (hi, lo) uint32 pair.
 The port's state carried across from the JAX package is a proof batch:
 `batch_from_numpy` takes the leaves of a JAX `ProofBatch` (numpy (hi, lo)
 uint32 arrays in pytree order) and `load_batch_npz` reads the columnar
-fixtures that `witness.save_batch_npz` wrote, with numpy alone.
+fixtures that `witness.save_batch_npz` wrote, with numpy alone, and
+`save_batch_npz` writes them: the inverse of `u64_fields`.
 `load_proofs` takes proofs read from JSON (`proof_json.py`, `interop.py`).
 
 Hash-typed fields (caps and siblings) hold (..., 4) int64 words under both
@@ -23,7 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .hashing import get_hash_ops, pack_hi_lo
+from .hashing import get_hash_ops, pack_hi_lo, split_hi_lo
 from .ops import goldilocks as gl
 
 
@@ -366,6 +367,32 @@ def npz_leaves(path):
 def load_batch_npz(path, shape, device):
     """Read a columnar fixture (`fib_stark_n*_x*.npz`) with numpy alone."""
     return batch_from_numpy(npz_leaves(path), shape, device)
+
+
+def jax_leaves(batch):
+    """A ProofBatch (on any device) -> the leaves of the JAX package's
+    ProofBatch pytree, numpy uint32, in order: a Goldilocks array as its
+    (hi, lo) pair, a hash array as the hasher's `to_jax_leaves` gives it,
+    an absent field none (the inverse of `u64_fields`)."""
+    H = get_hash_ops(batch.shape.hasher)
+    out = []
+    for f in _FIELDS:
+        v = getattr(batch, f)
+        if v is None:
+            continue
+        split = H.to_jax_leaves if f in HASH_FIELDS else split_hi_lo
+        for t in (v if isinstance(v, list) else [v]):
+            out.extend(split(gl.to_u64(t)))
+    return out
+
+
+def save_batch_npz(path, batch):
+    """Write `batch` as a columnar npz fixture: leaves a0, a1, ... of the
+    JAX ProofBatch, as the JAX package's `save_batch_npz`
+    (`witness.py:229` there) writes them, so `load_batch_npz` and the JAX
+    loader read it back."""
+    np.savez_compressed(path, **{f"a{i}": x for i, x in
+                                 enumerate(jax_leaves(batch))})
 
 
 def _tensors(batch, fields_=_FIELDS):

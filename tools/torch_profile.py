@@ -23,7 +23,11 @@ With --census (on the CPU; no card) it instead counts the PLONK drives'
 launches: one verify's aten ops less views, each kernel one launch, and
 those of its vanishing terms at zeta (<out>/plonk_census.json); and the
 plonkish drives' launches, one verify of one proof at n=2^11 and at n=2^5
-(<out>/plonkish_census.json).
+(<out>/plonkish_census.json).  The same verify takes the op census
+(`utils/profiling.py`), which launches nothing: for each drive
+<out>/op_census_<tag>.txt (the nested report of every metric),
+op_census_<tag>.folded (collapsed gl_mul stacks) and op_census_<tag>.svg
+(the gl_mul flamegraph).
 
 With --clock-probe it instead asks why K4 and K5 take less time inside a
 verify than back to back (as `chip_smoke.py` times them).  On the BN254
@@ -67,6 +71,7 @@ from halo2_plonky2_verifier_tpu_torch import (build_verifier,  # noqa: E402
                                               hashing, plonk, witness)
 from halo2_plonky2_verifier_tpu_torch.ops import _build  # noqa: E402
 from halo2_plonky2_verifier_tpu_torch.ops import goldilocks as gl  # noqa: E402
+from halo2_plonky2_verifier_tpu_torch.utils import profiling  # noqa: E402
 from halo2_plonky2_verifier_tpu_torch.utils.timing import (  # noqa: E402
     SmiSampler)
 
@@ -157,7 +162,10 @@ def profile_verify(verify, batch, what):
     aten_ops = launch_calls = 0
     launch_us = 0.0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a census scope (`utils/profiling.py:scope`) shows on the device as
+        # a user annotation spanning its kernels: no device work of its own
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
             us = e.time_range.elapsed_us()
             busy_us += us
             g = kernel_group(e.name)
@@ -322,7 +330,9 @@ _VIEW_OPS = {"aten.view.default", "aten._unsafe_view.default",
 
 class _LaunchCount(TorchDispatchMode):
     """Counts the aten ops that would launch a kernel on the card; a
-    wrapper of `_KERNELS` counts as one launch, its plain body as none."""
+    wrapper of `_KERNELS` counts as one launch, its plain body as none.  The
+    profiler's ops (`record_function`'s markers, which the census scopes of
+    `utils/profiling.py` enter) launch nothing and are not counted."""
 
     def __init__(self):
         super().__init__()
@@ -330,7 +340,9 @@ class _LaunchCount(TorchDispatchMode):
         self.paused = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if not self.paused and str(func) not in _VIEW_OPS:
+        name = str(func)
+        if not (self.paused or name in _VIEW_OPS
+                or name.startswith("profiler.")):
             self.n += 1
         return func(*args, **(kwargs or {}))
 
@@ -345,9 +357,24 @@ class _LaunchCount(TorchDispatchMode):
         return run
 
 
+def write_op_census(out, tag, tree):
+    """The op census of one verify: <out>/op_census_<tag>.txt (the report
+    of every metric it counted), .folded and .svg (gl_mul)."""
+    metrics = [m for m in ("gl_mul", "gl_add", "poseidon_permute",
+                           "bn254_mont_mul", "poseidon_bn254_permute")
+               if tree.root.total(m)]
+    base = os.path.join(out, f"op_census_{tag}")
+    with open(base + ".txt", "w") as f:
+        for m in metrics:
+            f.write(f"== {m} ==\n{tree.report(m)}\n\n")
+    tree.write_collapsed(base + ".folded")
+    tree.write_flamegraph_svg(base + ".svg", title=f"{tag}: gl_mul")
+    return {m: tree.root.total(m) for m in metrics}
+
+
 def _counted_verify(counter, verify, batch):
-    """verify(batch) under `counter`, each of K1, K2, K3 and K7 counted as
-    one launch."""
+    """verify(batch) under `counter` and an op census, each of K1, K2, K3
+    and K7 counted as one launch.  Returns (verdict, census tree)."""
     from halo2_plonky2_verifier_tpu_torch import transcript
     from halo2_plonky2_verifier_tpu_torch.ops import (merkle_kernels,
                                                       poseidon_kernels)
@@ -361,8 +388,8 @@ def _counted_verify(counter, verify, batch):
         setattr(o, a, staticmethod(counter.kernel(fn))
                 if isinstance(o, type) else counter.kernel(fn))
     try:
-        with counter:
-            return verify(batch)
+        with counter, profiling.profile() as tree:
+            return verify(batch), tree
     finally:
         for (o, a), fn in zip(patched, saved):
             setattr(o, a, staticmethod(fn) if isinstance(o, type) else fn)
@@ -394,14 +421,15 @@ def census(out):
 
         plonk.eval_vanishing_terms = counted_vanishing
         try:
-            ok = _counted_verify(counter, plonk.build_plonk_verifier(
+            ok, tree = _counted_verify(counter, plonk.build_plonk_verifier(
                 common, vd), batch)
         finally:
             plonk.eval_vanishing_terms = eval_vanishing
         if not bool(ok.all()):
             raise AssertionError(f"census {tag}: the proof was rejected")
         result[tag] = {"verify_launches": counter.n,
-                       "vanishing_launches": vanishing[0]}
+                       "vanishing_launches": vanishing[0],
+                       "op_census": write_op_census(out, tag, tree)}
         print(tag, json.dumps(result[tag]), flush=True)
     with open(os.path.join(out, "plonk_census.json"), "w") as f:
         json.dump(result, f, indent=1)
@@ -411,9 +439,11 @@ def census(out):
         verify, batch = plonkish_batch(num_rows, degree_bits, proofs_file, 1,
                                        "cpu")
         counter = _LaunchCount()
-        if not bool(_counted_verify(counter, verify, batch).all()):
+        ok, tree = _counted_verify(counter, verify, batch)
+        if not bool(ok.all()):
             raise AssertionError(f"census {tag}: the proof was rejected")
-        result[tag] = {"verify_launches": counter.n}
+        result[tag] = {"verify_launches": counter.n,
+                       "op_census": write_op_census(out, tag, tree)}
         print(tag, json.dumps(result[tag]), flush=True)
     with open(os.path.join(out, "plonkish_census.json"), "w") as f:
         json.dump(result, f, indent=1)

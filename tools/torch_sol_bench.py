@@ -1,7 +1,17 @@
-"""Speed-of-light probes of the Poseidon-Goldilocks permutation on a CUDA
-card, for the PyTorch port's roofline accounting.
+"""Speed-of-light probes of the Goldilocks multiply and the
+Poseidon-Goldilocks permutation on a CUDA card, for the PyTorch port's
+roofline accounting.
 
-The counterpart of `tools/sol_bench.py:measure_poseidon_sol`, at its sizes:
+`measure_gl_mul_sol` is the counterpart of `tools/sol_bench.py:
+measure_gl_mul_sol`, with its signature and defaults: kernel K10
+(`ops/goldilocks_kernels.py:mul_chain`) runs `chain` = 256 dependent
+products x <- x * y on each element of (8, 2^21) planes, three serially
+dependent reps after a warm-up call, one synchronise after the last.  Its
+rate is the denominator of BASELINE.json's "Goldilocks muls/sec vs SOL":
+pct_speed_of_light = census gl_mul per proof x proofs/s / this rate.
+
+`measure_poseidon_sol` is the counterpart of `tools/sol_bench.py:
+measure_poseidon_sol`, at its sizes:
 
   chained       K8, 64 permutations in a row on each of 2^18 states held in
                 registers (one read and one write of the state for all 64);
@@ -33,7 +43,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from halo2_plonky2_verifier_tpu_torch.ops import (  # noqa: E402
-    goldilocks as gl, merkle_kernels as mk, poseidon_kernels as pk)
+    goldilocks as gl, goldilocks_kernels as glk, merkle_kernels as mk,
+    poseidon_kernels as pk)
 from halo2_plonky2_verifier_tpu_torch.utils import roofline  # noqa: E402
 
 # name, kernel, lanes, depth (K8: permutations in a row; K1: d_max)
@@ -77,6 +88,31 @@ def time_chain(fn, x, reps, device):
     torch.cuda.synchronize(device)
     return statistics.median(a.elapsed_time(b)
                              for a, b in zip(events, events[1:]))
+
+
+def measure_gl_mul_sol(n_lanes=1 << 21, chain=256, reps=3, device="cuda"):
+    """Goldilocks products per second of K10 on `device` (the card unless
+    the caller passes device="cpu"; the plain version and the CPU's rate
+    then).  x and y are (8, n_lanes) planes from numpy's default_rng(0), as
+    the JAX probe draws them; each rep multiplies every element `chain`
+    times and feeds the result to the next rep.  Returns (gl_mul_per_sec,
+    seconds_per_rep)."""
+    device = torch.device(device)
+    rng = np.random.default_rng(0)
+    x = gl.from_u64(rng.integers(0, gl.P, size=(8, n_lanes),
+                                 dtype=np.uint64), device)
+    y = gl.from_u64(rng.integers(1, gl.P, size=(8, n_lanes),
+                                 dtype=np.uint64), device)
+    x = glk.mul_chain(x, y, chain)          # warm: build and first launch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        x = glk.mul_chain(x, y, chain)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = (time.perf_counter() - t0) / reps
+    return 8 * n_lanes * chain / dt, dt
 
 
 def _probe_call(kernel, lanes, depth, rng, device):
@@ -133,6 +169,12 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("torch_sol_bench: no CUDA card")
     print(f"device: {card_line()}", flush=True)
+    rate, sec = measure_gl_mul_sol(reps=args.reps)
+    b_ms, b_by = roofline.bound(*roofline.gl_mul_chain(8 << 21, 256))
+    print(f"gl_mul speed of light (K10, 8 x 2^21 lanes, chain 256): "
+          f"{rate / 1e9:.3f} G mul/s ({sec * 1e3:.4f} ms/rep), bound "
+          f"{b_ms:.4f} ms ({b_by}), share {b_ms / (sec * 1e3):.4f}",
+          flush=True)
     pps, sec, _ = measure_poseidon_sol(reps=args.reps,
                                        log=lambda m: print(m, flush=True))
     print(f"poseidon permutation speed of light: {pps / 1e6:.2f} M perm/s "
